@@ -14,7 +14,10 @@ nothing of JAX. Phases, one JSON line each:
 3. kernels — holds each CUDA kernel against its plain PyTorch version on
    the same inputs, at the main path's shapes (64, 16384) and at a ragged
    (64, 16421) with a box(0.25, 1.0) projection, and times both with CUDA
-   events over inputs that do not fit in L2;
+   events over inputs that do not fit in L2. The four codec uplink kernels
+   (scale, quantize, eff, mask) must match their plain versions exactly,
+   with and without aliveness (one dead worker); the merge kernel is also
+   held and timed on its gated branch (``recv``/``old``, ``kernel_case``);
 4. main path — the bilinear game at n=16384 (``game``: with the oracle
    GEMM and the noise draw timed alone) through ``PSEngine`` with M=64
    workers, K=50 local steps, R=5 rounds, fused step and merge kernels
@@ -24,7 +27,15 @@ nothing of JAX. Phases, one JSON line each:
    record how far the backends drift there (``sensitivity``); ``breakdown``
    splits the fused ms per local step into its parts;
 5. l2 — the same game on an l2 ball for R=2, which must run through
-   ``adaseg_finish``.
+   ``adaseg_finish``;
+6. codec — the same game through the compressed, fault-tolerant sync:
+   stragglers (K ~ U{25..50}), 10% Bernoulli worker faults, R=5, with
+   8-bit stochastic quantization (``q8``) and with top-25% (``top25``),
+   both under error feedback; each under the fused and the reference
+   backends. The residual must be finite and fall, each codec's kernels
+   must have launched, the two backends' residual traces must agree within
+   rtol 1e-4, and the uplink's time per sync is reported beside the
+   round's wall time.
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -46,6 +57,16 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# int32 throughput: 64 lanes per SM per clock (Hopper's integer pipes) times
+# the SMs times the maximum SM clock nvidia-smi reports (set by the device
+# phase).
+INT32_LANES_PER_SM_CLOCK = 64
+CARD = {"int32_ops_per_s": None}
+# Live int32 operations per element of the quantize kernel: 68 for
+# threefry2x32 once the compiler drops what the first output word does not
+# need (19 mixes of add, funnel shift and xor, the last mix's add, 9 key
+# injections, the counter add), 2 for the uniform's mantissa (shift, or).
+QUANTIZE_INT_OPS = 70
 
 N, M, K, R = 16384, 64, 50, 5
 N_RAGGED = 16421
@@ -58,6 +79,11 @@ DIAMETER = math.sqrt(2 * N)
 TOL_ELEM = 1e-6      # elementwise outputs; FMA contraction in the kernels
 TOL_STAT = 1e-5      # per-worker sums; the kernels sum in another order
 TOL_TRACE = 1e-4     # fused vs reference residual trace
+# Codec phase: stragglers and faults from fixed seeds.
+CODEC_SCHEDULE = dict(k=K, min_frac=0.5, seed=5)
+CODEC_FAULTS = dict(p=0.1, seed=3)
+LEVELS = 255.0       # 8-bit stochastic quantization
+DEAD_ROW = 3         # the dead worker of the uplink kernel checks
 
 
 def emit(phase: str, **fields) -> None:
@@ -118,9 +144,13 @@ def graph_ms(calls, trials: int = 11) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          int_ops: float = 0.0) -> tuple[float, str]:
+    """Least ms for the work: the larger of the bytes over the HBM rate and
+    the operations (f32 and int32, each over its own peak) over time."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S,
+                int_ops / CARD["int32_ops_per_s"] if int_ops else 0.0) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -141,6 +171,13 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["int32_ops_per_s"] = INT32_LANES_PER_SM_CLOCK * sms * clock_mhz * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -149,7 +186,8 @@ def phase_device():
           "f32 matmul precision is not 'highest'")
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, sms=sms, max_sm_clock_mhz=clock_mhz,
+         int32_ops_per_s=CARD["int32_ops_per_s"])
     return smi
 
 
@@ -291,6 +329,169 @@ def phase_kernels():
     return results
 
 
+def phase_codec_kernels(results):
+    """The codec uplink kernels (and the merge's gated branch) against their
+    plain versions, on the main path's effective-message form (w and ef
+    given), with and without aliveness; the timed inputs have one dead
+    worker, as a fault-tolerant sync gives them."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+    from repro_torch.kernels.sync_compress import ref as sr
+
+    dev = torch.device("cuda")
+    src = "src/repro_torch/csrc/sync_compress.cu"
+    tiles = (N + sk.TILE - 1) // sk.TILE
+    live = M - 1
+
+    def inputs(seed, n):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def u(*shape):
+            return torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+
+        z, ef = u(M, n), 1e-3 * u(M, n)
+        w = u(M) + 1.5
+        w = w / w.sum()
+        keys = torch.randint(0, 2 ** 32, (M, 2), generator=gen, device=dev)
+        alive = torch.ones(M, device=dev)
+        alive[DEAD_ROW] = 0.0
+        return dict(
+            z=z, ef=ef, w=w, keys=keys, words=sk._key_words(keys, M, z),
+            alive=alive, eff=sr.eff_uplink_ref(z, ef, w),
+            scale=torch.clamp(sr.uplink_stats_ref(z, ef, w), min=1e-30),
+            mask=(torch.rand(M, n, generator=gen, device=dev) < 0.25)
+            .to(torch.uint8),
+            msg=z * w[:, None], old=u(M, n),
+            out=torch.empty(M, n, device=dev),
+            out2=torch.empty(M, n, device=dev),
+            part=torch.empty(M, tiles, device=dev))
+
+    def stream(x):
+        return sk._build.stream_of(x["z"])
+
+    def alive_of(x, gated):
+        return x["alive"] if gated else None
+
+    # Each case: the wrapper and the plain version on the same inputs
+    # (checked for 0 error, with and without alive), the bare launch on
+    # preallocated outputs and the plain version (timed, one dead worker).
+    cases = {
+        "uplink_stats": dict(
+            replaces="src/repro/kernels/sync_compress/kernel.py:329",
+            gated=(False,),
+            # read z, ef, w; write (M, tiles) partial maxima
+            bytes=4 * (2 * M * N + M + M * tiles), flops=3 * M * N,
+            int_ops=0,
+            run=lambda x, g: (sk.uplink_stats(x["z"], x["w"], x["ef"]),),
+            plain=lambda x, g: (sr.uplink_stats_ref(x["z"], x["ef"],
+                                                    x["w"]),),
+            launch=lambda x: sk.STATS(
+                x["z"].data_ptr(), x["w"].data_ptr(), x["ef"].data_ptr(),
+                x["part"].data_ptr(), M, N, sk.TILE, 1, stream(x))),
+        "quantize_uplink": dict(
+            replaces="src/repro/kernels/sync_compress/kernel.py:344",
+            gated=(False, True),
+            # live rows read z, ef and write sent, ef_new; the dead row
+            # reads ef and writes both; w, scale, alive, key words per row
+            bytes=4 * (4 * live * N + 3 * N + 5 * M), flops=10 * live * N,
+            int_ops=QUANTIZE_INT_OPS * live * N,
+            run=lambda x, g: sk.quantize_uplink(
+                x["z"], x["keys"], x["scale"], x["w"], x["ef"],
+                alive_of(x, g), levels=LEVELS),
+            plain=lambda x, g: sr.quantize_uplink_ref(
+                x["z"], x["keys"], x["scale"], levels=LEVELS, ef=x["ef"],
+                w=x["w"], alive=alive_of(x, g)),
+            launch=lambda x: sk.QUANTIZE(
+                *(x[k].data_ptr() for k in ("z", "w", "ef", "scale", "alive",
+                                            "words", "out", "out2")),
+                M, N, sk.TILE, 1, LEVELS, stream(x))),
+        "eff_uplink": dict(
+            replaces="src/repro/kernels/sync_compress/kernel.py:373",
+            gated=(False,),
+            # read z, ef, w; write eff
+            bytes=4 * (3 * M * N + M), flops=2 * M * N, int_ops=0,
+            run=lambda x, g: (sk.eff_uplink(x["z"], x["w"], x["ef"]),),
+            plain=lambda x, g: (sr.eff_uplink_ref(x["z"], x["ef"], x["w"]),),
+            launch=lambda x: sk.EFF(
+                *(x[k].data_ptr() for k in ("z", "w", "ef", "out")),
+                M, N, sk.TILE, 1, stream(x)),
+            library=lambda x: torch.addcmul(x["ef"], x["w"][:, None],
+                                            x["z"])),
+        "mask_uplink": dict(
+            replaces="src/repro/kernels/sync_compress/kernel.py:386",
+            gated=(False, True),
+            # live rows read eff (f32) and the uint8 mask and write sent and
+            # ef_new; the dead row reads ef and writes both; alive per row
+            bytes=live * 13 * N + 12 * N + 4 * M, flops=live * N, int_ops=0,
+            run=lambda x, g: sk.mask_uplink(x["eff"], x["mask"], x["ef"],
+                                            alive_of(x, g)),
+            plain=lambda x, g: sr.mask_uplink_ref(
+                x["eff"], x["mask"], alive=alive_of(x, g), ef=x["ef"]),
+            launch=lambda x: sk.MASK(
+                *(x[k].data_ptr() for k in ("eff", "mask", "ef", "alive",
+                                            "out", "out2")),
+                M, N, sk.TILE, 1, stream(x))),
+    }
+
+    sets = [inputs(200 + i, N) for i in range(12)]
+    for name, c in cases.items():
+        err = 0.0
+        for n in (N, N_RAGGED):
+            x = inputs(2, n)
+            for gated in c["gated"]:
+                got, want = c["run"](x, gated), c["plain"](x, gated)
+                torch.cuda.synchronize()
+                for gt, wt in zip(got, want):
+                    err = max(err, max_abs(gt, wt))
+                if gated:
+                    sent, ef_new = got
+                    check(float(sent[DEAD_ROW].abs().max()) == 0.0
+                          and torch.equal(ef_new[DEAD_ROW],
+                                          x["ef"][DEAD_ROW]),
+                          f"{name}: the dead worker sent or moved its ef")
+        check(err == 0.0, f"{name}: max abs err {err} against the plain "
+                          "version (must be 0)")
+        ms = graph_ms([lambda x=x: c["launch"](x) for x in sets * 2])
+        plain_ms = graph_ms([lambda x=x: c["plain"](x, True) for x in sets])
+        library_ms = (graph_ms([lambda x=x: c["library"](x) for x in sets])
+                      if "library" in c else None)
+        b_ms, b_by = bound(c["bytes"], c["flops"], c["int_ops"])
+        results[name] = dict(
+            name=name, route="cuda", source=src, replaces=c["replaces"],
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        )
+        emit("kernel", **results[name],
+             gb_per_s=c["bytes"] / (ms * 1e-3) / 1e9)
+
+    # B5's gated branch as the codec path calls it: the w-scaled messages,
+    # unit weights, rows with recv = 0 keep old (sum order differs from
+    # torch.sum, hence TOL_ELEM).
+    err = 0.0
+    for n in (N, N_RAGGED):
+        x = inputs(3, n)
+        got = sk.merge_stacked(x["msg"], None, x["alive"], x["old"])
+        want = sr.merge_ref(x["msg"], None, recv=x["alive"] > 0,
+                            old=x["old"])
+        torch.cuda.synchronize()
+        err = max(err, max_abs(got, want))
+        check(torch.equal(got[DEAD_ROW], x["old"][DEAD_ROW]),
+              "merge_stacked: a non-receiving row did not keep old")
+    check(err <= TOL_ELEM, f"merge_stacked gated: max abs err {err}")
+    ms = graph_ms([lambda x=x: sk.MERGE(
+        x["msg"].data_ptr(), None,
+        *(x[k].data_ptr() for k in ("alive", "old", "out")), M, N, 0, 1,
+        stream(x)) for x in sets * 2])
+    plain_ms = graph_ms([lambda x=x: sr.merge_ref(
+        x["msg"], None, recv=x["alive"] > 0, old=x["old"]) for x in sets])
+    # read z, old of the non-receiving row and recv; write the (M, n) output
+    b_ms, b_by = bound(4 * (2 * M * N + N + M), M * N)
+    emit("kernel_case", name="merge_stacked", case="recv/old gated, "
+         "unit weights, one row keeps old", max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def reset_launches():
     from repro_torch.kernels import _build
 
@@ -304,7 +505,10 @@ def launches():
     return {k.name: k.launches for k in _build.KERNELS}
 
 
-def run_engine(game, problem, backend, rounds, g0=G0):
+def run_engine(game, problem, backend, rounds, g0=G0, **ps_kw):
+    """One PSEngine run on the card: (residuals, ms per local step of the
+    fleet, the engine). ``ps_kw`` go to PSConfig (compressor, schedule,
+    faults)."""
     import torch
 
     from repro_torch import random as jr
@@ -314,7 +518,7 @@ def run_engine(game, problem, backend, rounds, g0=G0):
     cfg = AdaSEGConfig(g0=g0, diameter=DIAMETER, k=K)
     eng = PSEngine(problem, PSConfig(adaseg=cfg, num_workers=M,
                                      rounds=rounds, backend=backend,
-                                     codec_backend=backend),
+                                     codec_backend=backend, **ps_kw),
                    rng=jr.PRNGKey(1), eval_fn=game.residual)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -326,7 +530,7 @@ def run_engine(game, problem, backend, rounds, g0=G0):
           f"{backend}: non-finite residual {res}")
     check(all(tuple(v.shape) == (N,) and bool(torch.isfinite(v).all())
               for v in zbar), f"{backend}: bad output iterate")
-    return res, wall * 1e3 / (rounds * K)
+    return res, wall * 1e3 / (rounds * K), eng
 
 
 def phase_main(results):
@@ -353,13 +557,13 @@ def phase_main(results):
     # costs; at G0 = 1 it also shows how far ulp-level differences between
     # the backends grow in one round when the first steps are far beyond
     # the Lipschitz step (recorded, not checked).
-    warm_f, _ = run_engine(game, game.problem, "fused", 1, g0=1.0)
-    warm_r, _ = run_engine(game, game.problem, "reference", 1, g0=1.0)
+    warm_f, _, _ = run_engine(game, game.problem, "fused", 1, g0=1.0)
+    warm_r, _, _ = run_engine(game, game.problem, "reference", 1, g0=1.0)
     emit("sensitivity", g0=1.0, rounds=1, fused=warm_f, reference=warm_r,
          max_rel=abs(warm_f[0] - warm_r[0]) / abs(warm_r[0]))
 
     reset_launches()
-    res_f, ms_f = run_engine(game, game.problem, "fused", R)
+    res_f, ms_f, _ = run_engine(game, game.problem, "fused", R)
     main_launches = launches()
     check(res_f[-1] < res_f[0], f"residual did not fall: {res_f}")
     for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
@@ -378,7 +582,7 @@ def phase_main(results):
     emit("breakdown", ms_per_local_step=ms_f, **parts,
          rest=ms_f - sum(parts.values()))
 
-    res_r, ms_r = run_engine(game, game.problem, "reference", R)
+    res_r, ms_r, _ = run_engine(game, game.problem, "reference", R)
     rel = max(abs(a - b) / abs(b) for a, b in zip(res_f, res_r))
     emit("main", backend="reference", residuals=res_r,
          ms_per_local_step=ms_r, max_rel_vs_fused=rel)
@@ -388,12 +592,86 @@ def phase_main(results):
     l2 = dataclasses.replace(game.problem,
                              project=projections.l2_ball(radius))
     reset_launches()
-    res_l2, ms_l2 = run_engine(game, l2, "fused", 2)
+    res_l2, ms_l2, _ = run_engine(game, l2, "fused", 2)
     l2_launches = launches()
     check(l2_launches["adaseg_finish"] > 0, "adaseg_finish never launched")
     results["adaseg_finish"]["launches"] = l2_launches["adaseg_finish"]
     emit("l2", radius=radius, residuals=res_l2, ms_per_local_step=ms_l2,
          launches=l2_launches)
+    return game
+
+
+def phase_codec(results, game):
+    """The compressed, fault-tolerant sync on the main path's game: q8 and
+    top-25% with error feedback under stragglers and worker faults, each
+    through the fused and the reference backends."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.kernels.sync_compress.ops import codec_uplink_stacked
+    from repro_torch.ps import (
+        BernoulliFaults,
+        StochasticQuantizeCompressor,
+        StragglerSchedule,
+        TopKCompressor,
+    )
+
+    policies = dict(schedule=StragglerSchedule(**CODEC_SCHEDULE),
+                    faults=BernoulliFaults(**CODEC_FAULTS))
+    codecs = (("q8", StochasticQuantizeCompressor(bits=8),
+               ("uplink_stats", "quantize_uplink")),
+              ("top25", TopKCompressor(fraction=0.25),
+               ("eff_uplink", "mask_uplink")))
+    for label, comp, codec_kernels in codecs:
+        reset_launches()
+        res_f, ms_f, eng = run_engine(game, game.problem, "fused", R,
+                                      compressor=comp, **policies)
+        path_launches = launches()
+        check(res_f[-1] < res_f[0], f"{label}: residual did not fall: "
+                                    f"{res_f}")
+        for name in codec_kernels + ("merge_stacked", "adaseg_explore",
+                                     "adaseg_anchor"):
+            check(path_launches[name] > 0,
+                  f"{label}: {name} never launched on the codec path")
+        for name in codec_kernels:
+            results[name]["launches"] = path_launches[name]
+        check(all(bool(torch.isfinite(e).all()) for e in eng._ef),
+              f"{label}: non-finite error-feedback residual")
+
+        # The uplink alone, at this run's shapes: the last round's payload,
+        # residual, survivor weights and aliveness.
+        alive = torch.as_tensor(eng._alive[-1], device="cuda")
+        sw = torch.where(alive, eng.worker.sync_weight(eng.state), 0.0)
+        uplink = dict(payload=eng.worker.sync_payload(eng.state),
+                      rngs=jr.split(jr.PRNGKey(7), M), w=sw / sw.sum(),
+                      ef=eng._ef, alive=alive, codec=comp.codec_spec)
+        uplink_ms = {
+            backend: time_ms(lambda uk=uk: codec_uplink_stacked(
+                **uplink, use_kernel=uk), reps=5, trials=5)
+            for backend, uk in (("fused", True), ("reference", False))}
+        # q8's leaf keys: split(rngs, L), an eager threefry on (M, 2) keys
+        leaf_split_ms = time_ms(lambda: jr.split(uplink["rngs"],
+                                                 len(uplink["payload"])),
+                                reps=5, trials=5)
+
+        res_r, ms_r, eng_r = run_engine(game, game.problem, "reference", R,
+                                        compressor=comp, **policies)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res_f, res_r))
+        for backend, res, ms, e in (("fused", res_f, ms_f, eng),
+                                    ("reference", res_r, ms_r, eng_r)):
+            walls = [r.wall_time_s * 1e3 for r in e.trace.rounds]
+            emit("codec", codec=label, backend=backend, residuals=res,
+                 ms_per_local_step=ms, round_wall_ms=statistics.mean(walls),
+                 uplink_ms_per_sync=uplink_ms[backend],
+                 leaf_key_split_ms=leaf_split_ms,
+                 alive_per_round=[sum(r.alive) for r in e.trace.rounds],
+                 steps_per_round=[sum(r.local_steps)
+                                  for r in e.trace.rounds],
+                 bytes_up_per_round=[r.bytes_up for r in e.trace.rounds],
+                 **({"launches": path_launches} if backend == "fused"
+                    else {"max_rel_vs_fused": rel}))
+        check(rel <= TOL_TRACE,
+              f"{label}: fused vs reference residuals differ by {rel}")
 
 
 def main() -> int:
@@ -408,7 +686,9 @@ def main() -> int:
     phase_device()
     phase_build()
     results = phase_kernels()
-    phase_main(results)
+    phase_codec_kernels(results)
+    game = phase_main(results)
+    phase_codec(results, game)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-// Fused Line-7 server merge for Hopper (sm_90a).
+// Fused Line-5/7 sync kernels for Hopper (sm_90a): the server merge and
+// the four codec uplink passes.
 //
-// Replaces the Pallas kernel merge_stacked of
+// merge_stacked_launch replaces the Pallas kernel merge_stacked of
 // src/repro/kernels/sync_compress/kernel.py (def :405, pallas_call :435):
 // out[m, :] = sum_i w_i z[i, :] for every row m (w normalised by its sum
 // in-register when asked, unit weights when absent); rows with recv[m] = 0
@@ -19,7 +20,38 @@
 // per block when asked) sit in shared memory. The grid is 1-D over column
 // groups; the ragged tail is masked by the column bound.
 //
-// The entry point returns cudaGetLastError() after its launch.
+// The codec uplink kernels replace the Pallas kernels of the same file that
+// run through _uplink_call (pallas_call :313):
+//   uplink_stats_launch    <- uplink_stats    (def :329, body _stats_kernel :103)
+//   quantize_uplink_launch <- quantize_uplink (def :344, body _quantize_kernel
+//                                              :115, stream _kernel_uniform :83)
+//   eff_uplink_launch      <- eff_uplink      (def :373, body _eff_kernel :145)
+//   mask_uplink_launch     <- mask_uplink     (def :386, body _mask_kernel :155)
+// They act on one worker-stacked leaf (M, n) per launch with per-worker
+// scalars: the weight w, the quantizer scale, the aliveness and the two key
+// words. Bound on an H100: HBM bandwidth for all four (per element, stats
+// reads 8 B, eff 12 B, mask 13 B, quantize 16 B), and for quantize also the
+// integer throughput: its in-kernel threefry2x32 and the uniform's mantissa
+// cost 70 live int32 operations per element, which at 64 lanes per SM per
+// clock is of the same order as its 16 B of traffic.
+//
+// Design: the grid is (column tiles x workers). A block owns one tile of one
+// worker's row and reads that worker's scalars once; each thread owns
+// columns of the tile (float4 when the row length and pointers allow it),
+// the ragged tail is masked by the column bound, and nothing uses atomics.
+// stats writes one partial maximum per block into (M, tiles) and the caller
+// takes the maximum over the tiles (exact in any order). A dead worker's
+// block reads no payload: it writes sent = 0 and copies its frozen residual.
+// The effective message eff = w*z + ef is rounded once (__fmaf_rn), as XLA
+// rounds the fused multiply-add it emits, and every later step uses the
+// _rn intrinsics so that nvcc's contraction cannot change a rounding: a
+// 1-ulp change of eff can flip a stochastic rounding decision and move the
+// element by a whole quantization level. Quantize generates its uniforms
+// in-register from the element's column index: threefry2x32(k0, k1, j, 0),
+// first output word, top 23 bits as the mantissa of [1, 2) minus 1 -- the
+// stream of the plain version, bit for bit.
+//
+// Every entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,6 +114,246 @@ merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Codec uplink (B6-B9): grid (column tiles x workers), V columns per thread
+// and step (V = 4: float4 loads and stores).
+// ---------------------------------------------------------------------------
+constexpr int kUpThreads = 256;
+
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load(const uint8_t* p, uint8_t (&v)[V]) {
+  if constexpr (V == 4) {
+    const uchar4 t = *reinterpret_cast<const uchar4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// The block's slice of its worker's row: columns [start, end) of row m.
+struct RowTile {
+  int m;
+  int64_t base;
+  int start;
+  int end;
+  __device__ RowTile(int n, int tile) {
+    m = blockIdx.y;
+    base = static_cast<int64_t>(m) * n;
+    start = blockIdx.x * tile;
+    end = min(start + tile, n);
+  }
+};
+
+// The codec's effective message w*z + ef, rounded once.
+__device__ __forceinline__ float effective(float z, float e, float w,
+                                           bool has_w, bool has_ef) {
+  if (has_w) return has_ef ? __fmaf_rn(w, z, e) : __fmul_rn(w, z);
+  return has_ef ? __fadd_rn(z, e) : z;
+}
+
+__device__ __forceinline__ bool row_alive(const float* alive, int m) {
+  return alive == nullptr || alive[m] > 0.f;
+}
+
+// A dead worker's tile: sent = 0 and the residual copied through (zeros
+// when there is none).
+template <int V>
+__device__ __forceinline__ void dead_row(const RowTile& t, const float* ef,
+                                         float* sent, float* ef_out) {
+  for (int j = t.start + V * threadIdx.x; j < t.end; j += V * kUpThreads) {
+    float zero[V] = {};
+    store<V>(sent + t.base + j, zero);
+    if (ef_out != nullptr) {
+      float ev[V] = {};
+      if (ef != nullptr) load<V>(ef + t.base + j, ev);
+      store<V>(ef_out + t.base + j, ev);
+    }
+  }
+}
+
+__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r) ^ x0;
+}
+
+// threefry2x32 (20 rounds) of the counter (x0, 0) under the key (k0, k1),
+// k2 = k0 ^ k1 ^ 0x1BD11BDA; returns the first output word.
+__device__ __forceinline__ uint32_t threefry_y0(uint32_t k0, uint32_t k1,
+                                                uint32_t k2, uint32_t x0) {
+  uint32_t x1 = k1;
+  x0 += k0;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k1; x1 += k2 + 1u;
+  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+  x0 += k2; x1 += k0 + 2u;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k0; x1 += k1 + 3u;
+  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+  x0 += k1; x1 += k2 + 4u;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  return x0 + k2;
+}
+
+// The codec stream's uniform in [0, 1) for column j.
+__device__ __forceinline__ float codec_uniform(uint32_t k0, uint32_t k1,
+                                               uint32_t k2, uint32_t j) {
+  const uint32_t bits = threefry_y0(k0, k1, k2, j);
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.f);
+}
+
+// B6 stats: part[m, tile] = max over the tile of |w*z + ef|.
+template <int V>
+__global__ void __launch_bounds__(kUpThreads)
+stats_kernel(const float* __restrict__ z, const float* __restrict__ w,
+             const float* __restrict__ ef, float* __restrict__ part, int n,
+             int tile) {
+  const RowTile t(n, tile);
+  const bool has_w = w != nullptr;
+  const bool has_ef = ef != nullptr;
+  const float wv = has_w ? w[t.m] : 1.f;
+  float acc = 0.f;
+  for (int j = t.start + V * threadIdx.x; j < t.end; j += V * kUpThreads) {
+    float zv[V], ev[V] = {};
+    load<V>(z + t.base + j, zv);
+    if (has_ef) load<V>(ef + t.base + j, ev);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      acc = fmaxf(acc, fabsf(effective(zv[i], ev[i], wv, has_w, has_ef)));
+    }
+  }
+  __shared__ float smem[kUpThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = fmaxf(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  }
+  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float mx = 0.f;
+    for (int i = 0; i < kUpThreads / 32; ++i) mx = fmaxf(mx, smem[i]);
+    part[static_cast<int64_t>(t.m) * gridDim.x + blockIdx.x] = mx;
+  }
+}
+
+// B7 quantize: eff = w*z + ef; y = |eff| / scale * levels; round y down or
+// up by comparing the stream's uniform with y - floor(y); sent = sign(eff) *
+// level * (scale * (1 / levels)); ef_out = eff - sent. The expression order
+// is that of _quantize_kernel, with the division by the constant levels
+// rewritten as XLA rewrites it.
+template <int V>
+__global__ void __launch_bounds__(kUpThreads)
+quantize_kernel(const float* __restrict__ z, const float* __restrict__ w,
+                const float* __restrict__ ef, const float* __restrict__ scale,
+                const float* __restrict__ alive,
+                const uint32_t* __restrict__ keys, float* __restrict__ sent,
+                float* __restrict__ ef_out, int n, int tile, float levels) {
+  const RowTile t(n, tile);
+  if (!row_alive(alive, t.m)) {
+    dead_row<V>(t, ef, sent, ef_out);
+    return;
+  }
+  const bool has_w = w != nullptr;
+  const bool has_ef = ef != nullptr;
+  const float wv = has_w ? w[t.m] : 1.f;
+  const float sc = scale[t.m];
+  // scale / levels as XLA computes it: times the f32 reciprocal of levels
+  const float step = __fmul_rn(sc, __frcp_rn(levels));
+  const uint32_t k0 = keys[2 * t.m];
+  const uint32_t k1 = keys[2 * t.m + 1];
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  for (int j = t.start + V * threadIdx.x; j < t.end; j += V * kUpThreads) {
+    float zv[V], ev[V] = {}, sv[V], nv[V];
+    load<V>(z + t.base + j, zv);
+    if (has_ef) load<V>(ef + t.base + j, ev);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float e = effective(zv[i], ev[i], wv, has_w, has_ef);
+      const float y = __fmul_rn(__fdiv_rn(fabsf(e), sc), levels);
+      const float lo = floorf(y);
+      const float u = codec_uniform(k0, k1, k2, static_cast<uint32_t>(j + i));
+      const float up = u < __fsub_rn(y, lo) ? 1.f : 0.f;
+      const float mag = __fmul_rn(__fadd_rn(lo, up), step);
+      const float sg = e > 0.f ? 1.f : (e < 0.f ? -1.f : 0.f);
+      sv[i] = __fmul_rn(sg, mag);
+      nv[i] = __fsub_rn(e, sv[i]);
+    }
+    store<V>(sent + t.base + j, sv);
+    if (ef_out != nullptr) store<V>(ef_out + t.base + j, nv);
+  }
+}
+
+// B8 eff: out = w*z + ef.
+template <int V>
+__global__ void __launch_bounds__(kUpThreads)
+eff_kernel(const float* __restrict__ z, const float* __restrict__ w,
+           const float* __restrict__ ef, float* __restrict__ out, int n,
+           int tile) {
+  const RowTile t(n, tile);
+  const bool has_w = w != nullptr;
+  const bool has_ef = ef != nullptr;
+  const float wv = has_w ? w[t.m] : 1.f;
+  for (int j = t.start + V * threadIdx.x; j < t.end; j += V * kUpThreads) {
+    float zv[V], ev[V] = {}, ov[V];
+    load<V>(z + t.base + j, zv);
+    if (has_ef) load<V>(ef + t.base + j, ev);
+#pragma unroll
+    for (int i = 0; i < V; ++i) ov[i] = effective(zv[i], ev[i], wv, has_w, has_ef);
+    store<V>(out + t.base + j, ov);
+  }
+}
+
+// B9 mask: sent = mask ? eff : 0, ef_out = eff - sent; dead rows send 0 and
+// keep ef.
+template <int V>
+__global__ void __launch_bounds__(kUpThreads)
+mask_kernel(const float* __restrict__ eff, const uint8_t* __restrict__ mask,
+            const float* __restrict__ ef, const float* __restrict__ alive,
+            float* __restrict__ sent, float* __restrict__ ef_out, int n,
+            int tile) {
+  const RowTile t(n, tile);
+  if (!row_alive(alive, t.m)) {
+    dead_row<V>(t, ef, sent, ef_out);
+    return;
+  }
+  for (int j = t.start + V * threadIdx.x; j < t.end; j += V * kUpThreads) {
+    float ev[V], sv[V], nv[V];
+    uint8_t mv[V];
+    load<V>(eff + t.base + j, ev);
+    load<V>(mask + t.base + j, mv);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sv[i] = mv[i] != 0 ? ev[i] : 0.f;
+      nv[i] = __fsub_rn(ev[i], sv[i]);
+    }
+    store<V>(sent + t.base + j, sv);
+    if (ef_out != nullptr) store<V>(ef_out + t.base + j, nv);
+  }
+}
+
+dim3 uplink_grid(int rows, int n, int tile) {
+  return dim3(static_cast<unsigned>((n + tile - 1) / tile),
+              static_cast<unsigned>(rows));
+}
+
 }  // namespace
 
 extern "C" {
@@ -99,6 +371,72 @@ int merge_stacked_launch(const float* z, const float* w, const float* recv,
   } else {
     const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
     merge_kernel<1><<<blocks, kThreads, smem, s>>>(z, w, recv, old, out, rows, n, normalize);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The uplink launchers: w, ef and alive may be null (no weight / no
+// residual / every worker alive), and so may ef_out (no residual written).
+// vec = 1 takes the float4 path: n and tile multiples of 4, pointers
+// 16-byte aligned (the uint8 mask 4-byte aligned).
+
+// part is (rows, ceil(n / tile)).
+int uplink_stats_launch(const float* z, const float* w, const float* ef,
+                        float* part, int rows, int n, int tile, int vec,
+                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = uplink_grid(rows, n, tile);
+  if (vec) {
+    stats_kernel<4><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, n, tile);
+  } else {
+    stats_kernel<1><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, n, tile);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys is (rows, 2) uint32; scale is (rows,), already clamped.
+int quantize_uplink_launch(const float* z, const float* w, const float* ef,
+                           const float* scale, const float* alive,
+                           const uint32_t* keys, float* sent, float* ef_out,
+                           int rows, int n, int tile, int vec, float levels,
+                           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = uplink_grid(rows, n, tile);
+  if (vec) {
+    quantize_kernel<4><<<grid, kUpThreads, 0, s>>>(
+        z, w, ef, scale, alive, keys, sent, ef_out, n, tile, levels);
+  } else {
+    quantize_kernel<1><<<grid, kUpThreads, 0, s>>>(
+        z, w, ef, scale, alive, keys, sent, ef_out, n, tile, levels);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int eff_uplink_launch(const float* z, const float* w, const float* ef,
+                      float* out, int rows, int n, int tile, int vec,
+                      void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = uplink_grid(rows, n, tile);
+  if (vec) {
+    eff_kernel<4><<<grid, kUpThreads, 0, s>>>(z, w, ef, out, n, tile);
+  } else {
+    eff_kernel<1><<<grid, kUpThreads, 0, s>>>(z, w, ef, out, n, tile);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask is (rows, n) uint8, nonzero = keep; ef is read for dead rows only.
+int mask_uplink_launch(const float* eff, const uint8_t* mask, const float* ef,
+                       const float* alive, float* sent, float* ef_out,
+                       int rows, int n, int tile, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid = uplink_grid(rows, n, tile);
+  if (vec) {
+    mask_kernel<4><<<grid, kUpThreads, 0, s>>>(eff, mask, ef, alive, sent,
+                                                ef_out, n, tile);
+  } else {
+    mask_kernel<1><<<grid, kUpThreads, 0, s>>>(eff, mask, ef, alive, sent,
+                                                ef_out, n, tile);
   }
   return static_cast<int>(cudaGetLastError());
 }

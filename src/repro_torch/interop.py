@@ -41,6 +41,20 @@ def game_from_numpy(a, b, c, sigma: float, *, device="cuda",
     return game_from_arrays(t(a), t(b), t(c), float(sigma), name)
 
 
+def ef_from_numpy(leaves, *, device="cuda") -> tuple:
+    """A JAX engine's error-feedback residual tree (its ``_ef``: one
+    worker-stacked float32 array per payload leaf, or ``()`` without error
+    feedback) as the port's tuple of tensors.
+
+    >>> ef = ef_from_numpy([np.zeros((2, 3)), np.ones((2, 4))], device="cpu")
+    >>> [tuple(v.shape) for v in ef], ef[1].dtype
+    ([(2, 3), (2, 4)], torch.float32)
+    """
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(np.array(v, dtype=np.float32), device=dev)
+                 for v in leaves)
+
+
 def state_from_numpy(fields, *, device="cuda") -> AdaSEGState:
     """A worker-stacked :class:`AdaSEGState` from a mapping (or namedtuple)
     of numpy arrays with the JAX state's field names; the iterate fields

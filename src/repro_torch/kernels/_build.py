@@ -144,6 +144,16 @@ class Kernel:
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper runs the plain version), False
+    for a CUDA one (it launches the kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if not t.is_cuda:
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a Python int."""
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -169,3 +179,31 @@ def aligned16(*tensors) -> bool:
     """True when every tensor given starts on a 16-byte boundary (float4
     loads)."""
     return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def layout(name: str, z: torch.Tensor, *others, max_rows: int = 65535):
+    """Check the worker-stacked ``(M, n)`` float32 CUDA operands (None
+    entries skipped); returns ``(M, n, vec)``, ``vec`` 1 when the float4
+    path applies (n a multiple of 4, every operand 16-byte aligned)."""
+    check_cuda_f32(name, z, *others)
+    rows, n = z.shape
+    for t in others:
+        if t is not None and t.shape != (rows, n):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {(rows, n)}")
+    if n == 0 or not 0 < rows <= max_rows:
+        raise ValueError(f"{name}: unsupported shape {(rows, n)}")
+    return rows, n, int(n % 4 == 0 and aligned16(z, *others))
+
+
+def per_worker_f32(name: str, v, rows: int, like: torch.Tensor):
+    """A scalar or ``(M,)`` value as a contiguous float32 ``(M,)`` tensor
+    on ``like``'s device (None stays None)."""
+    if v is None:
+        return None
+    t = torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    if t.ndim == 0:
+        t = t.expand(rows)
+    if t.shape != (rows,):
+        raise ValueError(f"{name}: per-worker vector of shape "
+                         f"{tuple(t.shape)}, expected {(rows,)}")
+    return t.contiguous()

@@ -42,38 +42,17 @@ FINISH = _build.Kernel(
     [P, P, P, P, P, P, P, P, I, I, I, I, P])
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if not t.is_cuda:
-        raise ValueError(f"unsupported device {t.device}")
-    return False
-
-
-def _per_worker_f32(v, rows: int, like: torch.Tensor) -> torch.Tensor:
-    """A scalar or ``(M,)`` value as a contiguous f32 ``(M,)`` tensor."""
-    t = torch.as_tensor(v, dtype=torch.float32, device=like.device)
-    return t.expand(rows).contiguous() if t.ndim == 0 else t.contiguous()
-
-
 def _sched(eta, sum_sq, rows, like):
     if (eta is None) == (sum_sq is None):
         raise ValueError("pass exactly one of eta= or sum_sq=")
     if sum_sq is not None:
-        return _per_worker_f32(sum_sq, rows, like), 1
-    return _per_worker_f32(eta, rows, like), 0
+        return _build.per_worker_f32("sum_sq", sum_sq, rows, like), 1
+    return _build.per_worker_f32("eta", eta, rows, like), 0
 
 
 def _layout(name, *tensors):
     """Check the (M, n) operands; returns (M, n, tiles, vec)."""
-    _build.check_cuda_f32(name, *tensors)
-    rows, n = tensors[0].shape
-    for t in tensors[1:]:
-        if t.shape != (rows, n):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {(rows, n)}")
-    if n == 0 or rows == 0 or rows > 65535:
-        raise ValueError(f"{name}: unsupported shape {(rows, n)}")
-    vec = int(n % 4 == 0 and _build.aligned16(*tensors))
+    rows, n, vec = _build.layout(name, *tensors)
     return rows, n, (n + TILE - 1) // TILE, vec
 
 
@@ -86,7 +65,7 @@ def _box_args(lo, hi):
 def adaseg_explore(z_star, m_t, eta=None, *, sum_sq=None, g0=0.0,
                    d_alpha=1.0, lo=None, hi=None, want_norm=False):
     """Returns ``(z_t, norm, msq)``, statistics ``(M,)``."""
-    if _on_cpu(z_star):
+    if _build.on_cpu(z_star):
         return adaseg_explore_ref(z_star, m_t, eta, sum_sq=sum_sq, g0=g0,
                                   d_alpha=d_alpha, lo=lo, hi=hi,
                                   want_norm=want_norm)
@@ -106,7 +85,7 @@ def adaseg_explore(z_star, m_t, eta=None, *, sum_sq=None, g0=0.0,
 def adaseg_anchor(z_star, z_t, g_t, eta=None, *, sum_sq=None, g0=0.0,
                   d_alpha=1.0, lo=None, hi=None):
     """Returns ``(z_tilde, stat, gsq)``, statistics ``(M,)``."""
-    if _on_cpu(z_star):
+    if _build.on_cpu(z_star):
         return adaseg_anchor_ref(z_star, z_t, g_t, eta, sum_sq=sum_sq, g0=g0,
                                  d_alpha=d_alpha, lo=lo, hi=hi)
     rows, n, tiles, vec = _layout("adaseg_anchor", z_star, z_t, g_t)
@@ -124,11 +103,11 @@ def adaseg_anchor(z_star, z_t, g_t, eta=None, *, sum_sq=None, g0=0.0,
 
 def adaseg_finish(z_star, zt_raw, ztl_raw, scale_t, scale_tl):
     """Returns ``(z_t, z_tilde, stat)``; scales are scalars or ``(M,)``."""
-    if _on_cpu(z_star):
+    if _build.on_cpu(z_star):
         return adaseg_finish_ref(z_star, zt_raw, ztl_raw, scale_t, scale_tl)
     rows, n, tiles, vec = _layout("adaseg_finish", z_star, zt_raw, ztl_raw)
-    s_t = _per_worker_f32(scale_t, rows, z_star)
-    s_l = _per_worker_f32(scale_tl, rows, z_star)
+    s_t = _build.per_worker_f32("adaseg_finish", scale_t, rows, z_star)
+    s_l = _build.per_worker_f32("adaseg_finish", scale_tl, rows, z_star)
     zt = torch.empty_like(z_star)
     ztl = torch.empty_like(z_star)
     part = torch.empty((rows, tiles, 1), dtype=torch.float32,

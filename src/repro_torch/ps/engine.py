@@ -6,17 +6,22 @@ optimizer-specific, a :class:`~repro_torch.ps.schedule.WorkerSchedule`
 gives the per-round local step counts K_m^r, and a
 :class:`~repro_torch.ps.trace.TraceRecorder` keeps per-round telemetry.
 
-This slice ports the serial path with the identity codec, no faults and
-full participation — Algorithm 1 as the paper runs it. Each round is the
-Line 5–8 sync (reference tree math, or the fused merge kernel under
-``codec_backend="fused"``) followed by K masked local steps of the whole
-stacked fleet. Compression, faults, client sampling, hostile fleets, the
-server optimizer, the sharded path and checkpoints raise
-``NotImplementedError`` until their slice.
+The serial path runs Algorithm 1 with any built-in compressor (identity,
+stochastic quantization or top-k, with error feedback), fault policy and
+schedule. Each round is the Line 5–8 sync followed by K_m^r masked local
+steps of the whole stacked fleet. The sync is reference tree math, or
+under ``codec_backend="fused"`` the fused uplink kernels
+(``codec_uplink_stacked``) and the merge kernel. Dead workers run no
+steps, send nothing (their error-feedback residual stays frozen), and
+keep their stale anchor; the Line-7 weights are renormalised over the
+survivors. Client sampling, hostile fleets, the server optimizer, the
+sharded path and checkpoints raise ``NotImplementedError`` until their
+slice.
 
 With the same seed the engine draws the same keys as the JAX package
 (``derive_rngs`` → ``split(rng0, R)`` per round → ``split(rng_round, K·M)``
-per step), so its trajectories can be held against the JAX engine's.
+per step, and ``split(fold_in(rng_round, 7), M)`` for the codec), so its
+trajectories can be held against the JAX engine's.
 """
 from __future__ import annotations
 
@@ -29,11 +34,17 @@ import torch
 from .. import random as jr
 from .._device import resolve_device
 from ..core.adaseg import AdaSEGConfig, weighted_worker_average
-from ..core.tree import per_worker, tree_map
+from ..core.tree import per_worker, tree_map, tree_zeros_like
 from ..core.types import MinimaxProblem
 from ..core.worker import AdaSEGWorker, LocalWorker
+from ..kernels.sync_compress.ref import effective_message
 from ..obs import SpanTracer
-from .compress import IdentityCompressor, SyncCompressor, dense_bytes
+from .compress import (
+    IdentityCompressor,
+    SyncCompressor,
+    check_codec_backend,
+    dense_bytes,
+)
 from .faults import FaultPolicy, NoFaults
 from .schedule import UniformSchedule, WorkerSchedule
 from .trace import RoundRecord, TraceRecorder
@@ -48,8 +59,10 @@ class PSConfig:
     The optimizer is ``adaseg=`` (an :class:`AdaSEGConfig`, wrapped into an
     :class:`AdaSEGWorker` with ``backend``) or ``worker=`` (any
     :class:`LocalWorker`, which then needs ``local_k=`` or ``schedule=``).
-    The fields after ``codec_backend`` exist for the later slices and must
-    stay None here.
+    ``codec_backend`` picks the sync's implementation: ``"reference"``
+    (plain PyTorch) or ``"fused"`` (the CUDA kernels; their plain versions
+    for CPU tensors). The fields after it exist for the later slices and
+    must stay None here.
 
     Examples
     --------
@@ -108,53 +121,106 @@ def _resolve_schedule(config: PSConfig) -> WorkerSchedule:
     )
 
 
-def _check_slice(config: PSConfig, compressor, faults) -> None:
+def _check_slice(config: PSConfig, compressor) -> None:
     """Refuse the features this slice has not ported yet."""
     for name in _LATER:
         if getattr(config, name) is not None:
             raise NotImplementedError(
                 f"PSConfig.{name} is ported in a later slice")
-    if not compressor.is_identity:
-        raise NotImplementedError(
-            "sync compression is ported in a later slice")
-    if not isinstance(faults, NoFaults):
-        raise NotImplementedError("fault policies are ported in a later slice")
-    if config.codec_backend not in ("reference", "fused"):
-        raise ValueError(f"unknown codec backend {config.codec_backend!r}")
+    check_codec_backend(config.codec_backend, compressor)
 
 
-def make_sync_stacked(worker: LocalWorker, codec_backend: str = "reference"):
-    """Line 5–8 on the stacked worker axis with the identity codec and every
-    worker up: w = sync_weight / Σ sync_weight, the server sums w·payload
-    and every worker receives the sum. Returns ``sync(state) -> state``.
+def _line7_weights(sw, alive_r):
+    """w = sync_weight / Σ over the survivors, and who receives the merge
+    (``recv = alive ∧ any alive``; None when ``alive_r`` is None)."""
+    if alive_r is None:
+        return sw / torch.sum(sw), None
+    w_raw = torch.where(alive_r, sw, 0.0)
+    denom = torch.sum(w_raw)
+    any_alive = denom > 0.0
+    return w_raw / torch.where(any_alive, denom, 1.0), alive_r & any_alive
 
-    ``codec_backend="fused"`` normalises ``w`` here and runs the merge
-    kernel without ``normalize`` — one read and one write of the fleet
-    payload per leaf instead of the scale, sum and broadcast passes."""
+
+def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
+                      num_workers: int, codec_backend: str = "reference"):
+    """Line 5–8 on the stacked worker axis: compress(w·payload) per worker
+    (plus the error-feedback residual), server sum, broadcast to the
+    survivors. Returns ``sync(state, ef, alive_r, c_rng) -> (state,
+    ef_new)``: ``alive_r`` (M,) bool, or None when the fault policy
+    guarantees everyone is up (then nothing is masked, and the identity
+    codec runs exactly the no-fault expressions); ``c_rng`` the round's
+    codec key, split into one key per worker.
+
+    ``codec_backend="fused"`` normalises ``w`` here and runs the uplink
+    kernels (``codec_uplink_stacked``) and the merge kernel; with the
+    identity codec the merge kernel alone applies ``w``: one read and one
+    write of the fleet payload per leaf."""
+    comp = compressor
+    m = num_workers
+    has_ef = comp.error_feedback
+
     if codec_backend == "fused":
-        from ..kernels.sync_compress.ops import sync_merge_stacked
+        from ..kernels.sync_compress.ops import (
+            codec_uplink_stacked,
+            sync_merge_stacked,
+        )
 
-        def sync_stacked_fused(state):
-            sw = worker.sync_weight(state)                    # (M,)
-            w = sw / torch.sum(sw)
-            synced = sync_merge_stacked(worker.sync_payload(state), w)
-            return worker.merge_synced(state, synced)
+        def sync_stacked_fused(state, ef, alive_r, c_rng):
+            w, recv = _line7_weights(worker.sync_weight(state), alive_r)
+            payload = worker.sync_payload(state)
+            old = None if recv is None else payload
+            if comp.is_identity:
+                synced = sync_merge_stacked(payload, w, recv, old)
+                return worker.merge_synced(state, synced), ef
+            sent, ef_new = codec_uplink_stacked(
+                payload, jr.split(c_rng, m), w=w,
+                ef=ef if has_ef else None, alive=alive_r,
+                codec=comp.codec_spec,
+            )
+            synced = sync_merge_stacked(sent, None, recv, old)
+            return worker.merge_synced(state, synced), (
+                ef_new if has_ef else ef)
 
         return sync_stacked_fused
 
-    def sync_stacked(state):
-        sw = worker.sync_weight(state)                        # (M,)
-        w = sw / torch.sum(sw)
-        messages = tree_map(
-            lambda leaf: per_worker(w, leaf).to(leaf.dtype) * leaf,
-            worker.sync_payload(state),
-        )
-        synced = tree_map(
-            lambda s: torch.sum(s, dim=0, keepdim=True).expand(s.shape)
-            .contiguous(),
-            messages,
-        )
-        return worker.merge_synced(state, synced)
+    def sync_stacked(state, ef, alive_r, c_rng):
+        w, recv = _line7_weights(worker.sync_weight(state), alive_r)
+        payload = worker.sync_payload(state)
+        if comp.is_identity:
+            sent = tree_map(
+                lambda leaf: per_worker(w, leaf).to(leaf.dtype) * leaf,
+                payload,
+            )
+            ef_new = ef
+        else:
+            eff = tree_map(lambda leaf, e: effective_message(leaf, e, w),
+                           payload, ef if has_ef else (None,) * len(payload))
+            sent = comp.compress(eff, jr.split(c_rng, m))
+            if alive_r is None:
+                ef_new = tree_map(torch.sub, eff, sent) if has_ef else ef
+            else:
+                # dead workers send nothing and keep their error memory
+                sent = tree_map(
+                    lambda s: torch.where(per_worker(alive_r, s), s, 0.0),
+                    sent)
+                ef_new = tree_map(
+                    lambda e, s, e_old: torch.where(
+                        per_worker(alive_r, e), e - s, e_old),
+                    eff, sent, ef) if has_ef else ef
+        if recv is None:
+            synced = tree_map(
+                lambda s: torch.sum(s, dim=0, keepdim=True).expand(s.shape)
+                .contiguous(),
+                sent,
+            )
+        else:
+            synced = tree_map(
+                lambda s, old: torch.where(
+                    per_worker(recv, old),
+                    torch.sum(s, dim=0, keepdim=True), old),
+                sent, payload,
+            )
+        return worker.merge_synced(state, synced), ef_new
 
     return sync_stacked
 
@@ -162,31 +228,39 @@ def make_sync_stacked(worker: LocalWorker, codec_backend: str = "reference"):
 def make_serial_chunk(
     problem: MinimaxProblem,
     worker: LocalWorker,
+    compressor: SyncCompressor,
     num_workers: int,
     k_pad: int,
     eval_fn,
+    no_faults: bool,
     codec_backend: str = "reference",
     device="cuda",
 ):
     """Build the serial-path round chunk: for each round, sync then K_m^r
     masked local steps (a Python loop where the JAX package scans).
 
-    The chunk is ``chunk(state, round_rngs, ks, counts_cum) -> (state,
-    eta_stats, ress)``: ``round_rngs`` ``(C, 2)``, ``ks`` and
-    ``counts_cum`` ``(C, M)`` host tables; ``eta_stats`` is ``(C, 3)``
-    per-round ``[min, max, mean]`` of η over the fleet and ``ress`` ``(C,)``
-    the residual of the running Line-14 output (NaN without ``eval_fn``),
-    both left on the device so a chunk transfers O(rounds) values once."""
+    The chunk is ``chunk(state, ef, round_rngs, steps, alive, counts_cum)
+    -> (state, ef, eta_stats, ress)``: ``ef`` the error-feedback residual
+    tree (``()`` without error feedback), ``round_rngs`` ``(C, 2)``;
+    ``steps`` (the realised K_m^r, 0 for dead workers), ``alive`` and
+    ``counts_cum`` are ``(C, M)`` host tables;
+    ``eta_stats`` is ``(C, 3)`` per-round ``[min, max, mean]`` of η over
+    the fleet and ``ress`` ``(C,)`` the residual of the running Line-14
+    output (NaN without ``eval_fn``), both left on the device so a chunk
+    transfers O(rounds) values once. ``no_faults`` is the static "no
+    masking" case: ``alive`` is then ignored."""
     m = num_workers
     dev = torch.device(device)
-    sync_stacked = make_sync_stacked(worker, codec_backend)
+    sync_stacked = make_sync_stacked(worker, compressor, m, codec_backend)
 
-    def round_body(state, rng_round, ks_r, counts_r):
-        state = sync_stacked(state)
+    def round_body(state, ef, rng_round, steps_r, alive_r, counts_r):
+        alive_t = None if no_faults else torch.as_tensor(alive_r, device=dev)
+        c_rng = None if compressor.is_identity else jr.fold_in(rng_round, 7)
+        state, ef = sync_stacked(state, ef, alive_t, c_rng)
         # Line 3–4: K_m^r masked local steps (no mask when all run).
         step_rngs = jr.split(rng_round, k_pad * m).reshape(k_pad, m, 2)
         for i in range(k_pad):
-            run = ks_r > i
+            run = steps_r > i
             enabled = None if run.all() else torch.as_tensor(run, device=dev)
             state = worker.step(problem, state, step_rngs[i], enabled=enabled)
 
@@ -199,16 +273,16 @@ def make_serial_chunk(
             counts = counts_r if counts_r.sum() > 0 else np.ones_like(counts_r)
             res = eval_fn(weighted_worker_average(
                 worker.output(state), torch.as_tensor(counts, device=dev)))
-        return state, eta_stats, res.to(torch.float32)
+        return state, ef, eta_stats, res.to(torch.float32)
 
-    def chunk(state, round_rngs, ks, counts_cum):
+    def chunk(state, ef, round_rngs, steps, alive, counts_cum):
         etas, ress = [], []
         for c in range(round_rngs.shape[0]):
-            state, eta_stats, res = round_body(state, round_rngs[c], ks[c],
-                                               counts_cum[c])
+            state, ef, eta_stats, res = round_body(
+                state, ef, round_rngs[c], steps[c], alive[c], counts_cum[c])
             etas.append(eta_stats)
             ress.append(res)
-        return state, torch.stack(etas), torch.stack(ress)
+        return state, ef, torch.stack(etas), torch.stack(ress)
 
     return chunk
 
@@ -257,8 +331,10 @@ class PSEngine:
         self.schedule = _resolve_schedule(config)
         self.compressor = config.compressor or IdentityCompressor()
         self.faults = config.faults or NoFaults()
-        _check_slice(config, self.compressor, self.faults)
+        _check_slice(config, self.compressor)
         self.codec_backend = config.codec_backend
+        # Static: NoFaults lets the round skip aliveness masking entirely.
+        self._no_faults = isinstance(self.faults, NoFaults)
         self.eval_fn = eval_fn
 
         m, r = config.num_workers, config.rounds
@@ -285,6 +361,10 @@ class PSEngine:
             problem, worker_rngs,
             torch.arange(m, dtype=torch.int32, device=self.device))
         self.round = 0
+        # Error-feedback residuals, one per worker and payload leaf.
+        self._ef: PyTree = (
+            tree_zeros_like(self.worker.sync_payload(self._state))
+            if self.compressor.error_feedback else ())
 
         z_like = tuple(v[0] for v in self.worker.sync_payload(self._state))
         self._msg_bytes = self.compressor.message_bytes(z_like)
@@ -302,8 +382,8 @@ class PSEngine:
             "execution": "serial",
         })
         self._chunk_fn = make_serial_chunk(
-            problem, self.worker, m, self._k_pad, eval_fn,
-            self.codec_backend, self.device,
+            problem, self.worker, self.compressor, m, self._k_pad, eval_fn,
+            self._no_faults, self.codec_backend, self.device,
         )
 
     # ------------------------------------------------------------------
@@ -314,14 +394,14 @@ class PSEngine:
         sl = slice(r0, r1)
         with self.tracer.span(f"chunk [{r0},{r1})", cat="chunk",
                               rounds=r1 - r0) as chunk_sp:
-            state, etas, ress = self._chunk_fn(
-                self._state, self._round_rngs[sl], self._ks[sl],
-                self._counts_cum[sl])
+            state, ef, etas, ress = self._chunk_fn(
+                self._state, self._ef, self._round_rngs[sl],
+                self._eff_steps[sl], self._alive[sl], self._counts_cum[sl])
             # The host copies wait for the device, so the span times the
             # chunk's device work too.
             stats = etas.cpu().numpy()                        # (C, 3)
             ress = ress.cpu().numpy()
-        self._state = state
+        self._state, self._ef = state, ef
         self.round = r1
 
         # The chunk's wall-clock, attributed uniformly across its rounds.

@@ -8,6 +8,8 @@ module reproduces ``jax.random`` (threefry2x32, ``jax_threefry_partitionable
 package from one seed:
 
 * ``split(key, n)[i]``     = ``T(k0, k1, 0, i)`` (both output words);
+* ``fold_in(key, d)``      = ``T(k0, k1, 0, d)``, the same words as
+  ``split(key, d + 1)[d]``;
 * ``bits(key, shape)[i]``  = ``y0 ^ y1`` with ``(y0, y1) = T(k0, k1, 0, i)``
   over the flat index ``i``;
 * ``uniform``              = ``max(lo, fma(f, hi − lo, lo))`` with
@@ -108,6 +110,23 @@ def _hash(key: torch.Tensor, total: int, fn) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` keys → ``(..., num, 2)``."""
     return _hash(key, num, lambda y0, y1: torch.stack([y0, y1], dim=-1))
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in`` for a 32-bit ``data``: the cipher on counter
+    ``(0, data)``, both output words — ``split(key, data + 1)[data]``.
+
+    >>> key = PRNGKey(5, device="cpu")
+    >>> bool((fold_in(key, 7) == split(key, 8)[7]).all())
+    True
+    """
+    data = int(data)
+    if not 0 <= data <= _MASK:
+        raise ValueError(f"fold_in data {data} is not a uint32 word")
+    k0, k1 = _words(key)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(k0), torch.full_like(
+        k1, data))
+    return torch.cat([y0, y1], dim=-1)
 
 
 def bits(key: torch.Tensor, shape=()) -> torch.Tensor:

@@ -1,10 +1,17 @@
-"""The slice as a whole: the port's serial PSEngine (and the one-shot driver
-under it) against the JAX package's, from the same seed.
+"""The slices as a whole: the port's serial PSEngine (and the one-shot
+``run_local_adaseg`` under it) against the JAX package's, from the same
+seed — the identity main path, and the compressed, fault-tolerant sync
+(top-k and 8-bit stochastic quantization with error feedback, fault
+policies, schedules).
 
-Cross-package bars are tolerances (rtol 1e-5 / atol 1e-6 on traces, iterates
-and accumulators; step counts exact): the two sides draw bit-identical keys,
-coefficients and initial iterates, and differ only in f32 sum order and
-erfinv ulps. Within the port, reruns and resumed runs are bit-identical.
+Cross-package bars are tolerances (rtol 1e-5 / atol 1e-6 on traces, iterates,
+accumulators and error-feedback residuals; step counts, aliveness and bytes
+exact): the two sides draw bit-identical keys, coefficients, initial
+iterates and codec uniforms, and differ only in f32 sum order and erfinv
+ulps. On these seeds no stochastic rounding decision flips between the two
+(a flip would move one element by a whole level, scale/255, and fail the
+bar). Within the port, the two codec backends agree bit for bit on the
+CPU, and reruns and resumed runs are bit-identical.
 """
 import dataclasses
 
@@ -21,6 +28,7 @@ from repro.core import projections as jproj
 from repro.core import run_local_adaseg as jax_run
 from repro.core import sync_weighted_stacked as jax_sync
 from repro.problems import make_bilinear_game as jax_game
+from repro import ps as jps
 from repro.ps import PSConfig as JaxPSConfig
 from repro.ps import PSEngine as JaxPSEngine
 from repro.ps.trace import TraceRecorder as JaxTraceRecorder
@@ -34,8 +42,9 @@ from repro_torch.core import (
     run_local_adaseg,
     sync_weighted_stacked,
 )
+from repro_torch import ps as tps
 from repro_torch.problems import make_bilinear_game
-from repro_torch.ps import IdentityCompressor, PSConfig, PSEngine
+from repro_torch.ps import PSConfig, PSEngine
 
 M, R = 4, 20
 CFG = dict(g0=1.0, diameter=2.0, k=5)
@@ -243,17 +252,11 @@ def test_state_from_numpy_reproduces_the_port_init(games):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("faults", "BernoulliFaults"), ("sampler", object()),
-    ("server_opt", object()), ("compressor", "q8"),
+    ("byzantine", object()), ("sampler", object()),
+    ("server_opt", object()), ("aggregator", object()),
 ])
 def test_later_slices_raise_not_implemented(games, field, value):
     _, tg = games
-    if field == "faults":
-        from repro_torch.ps import FaultPolicy
-
-        value = type("Bernoulli", (FaultPolicy,), {})()
-    if field == "compressor":
-        value = dataclasses.replace(IdentityCompressor(), is_identity=False)
     with pytest.raises(NotImplementedError):
         _port_engine(tg, **{field: value})
     with pytest.raises(NotImplementedError):
@@ -261,3 +264,233 @@ def test_later_slices_raise_not_implemented(games, field, value):
                                       num_workers=M, rounds=R),
                  rng=jr.PRNGKey(2, device="cpu"), mesh=object(),
                  device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Compressed, fault-tolerant sync: codecs with error feedback, fault
+# policies and schedules (n=8, M=4, K=4, as the JAX package's own
+# codec-backend parity test).
+# ---------------------------------------------------------------------------
+
+CODEC_CFG = dict(g0=1.0, diameter=2.0, alpha=1.0, k=4)
+CODECS = {
+    "identity": lambda mod: mod.IdentityCompressor(),
+    "top25": lambda mod: mod.TopKCompressor(fraction=0.25),
+    "q8": lambda mod: mod.StochasticQuantizeCompressor(bits=8),
+}
+
+
+def _hostile(mod):
+    return dict(faults=mod.BernoulliFaults(p=0.3, seed=5),
+                schedule=mod.StragglerSchedule(k=4, min_frac=0.5, seed=7))
+
+
+@pytest.fixture(scope="module")
+def small_games():
+    return (jax_game(jax.random.PRNGKey(0), n=8, sigma=0.1),
+            make_bilinear_game(jr.PRNGKey(0, device="cpu"), n=8, sigma=0.1,
+                               device="cpu"))
+
+
+def _jax_codec_engine(jg, codec_backend="reference", rounds=3, **kw):
+    return JaxPSEngine(jg.problem,
+                       JaxPSConfig(adaseg=JaxCfg(**CODEC_CFG), num_workers=M,
+                                   rounds=rounds, codec_backend=codec_backend,
+                                   **kw),
+                       rng=jax.random.PRNGKey(2), eval_fn=jg.residual)
+
+
+def _port_codec_engine(tg, codec_backend="reference", rounds=3, **kw):
+    return PSEngine(tg.problem,
+                    PSConfig(adaseg=AdaSEGConfig(**CODEC_CFG), num_workers=M,
+                             rounds=rounds, codec_backend=codec_backend,
+                             **kw),
+                    rng=jr.PRNGKey(2, device="cpu"), eval_fn=tg.residual,
+                    device="cpu")
+
+
+def _assert_matches_jax(te, z_t, je, z_j):
+    _close([r.residual for r in te.trace.rounds],
+           [r.residual for r in je.trace.rounds])
+    for a, b in zip(z_t, z_j):
+        _close(a, b)
+    for a, b in zip(te.state.z_tilde, je.state.z_tilde):
+        _close(a, b)
+    _close(te.state.sum_sq, je.state.sum_sq)
+    np.testing.assert_array_equal(te.state.t.numpy(), np.asarray(je.state.t))
+    assert len(te._ef) == len(jax.tree.leaves(je._ef))
+    for a, b in zip(te._ef, jax.tree.leaves(je._ef)):
+        _close(a, b)
+    for rt, rj in zip(te.trace.rounds, je.trace.rounds):
+        assert (rt.alive, rt.local_steps) == (rj.alive, rj.local_steps)
+        assert (rt.bytes_up, rt.bytes_down) == (rj.bytes_up, rj.bytes_down)
+    for key in ("schedule", "compressor", "faults", "codec_backend"):
+        assert te.trace.meta[key] == je.trace.meta[key], key
+
+
+def _assert_bitwise(a, b):
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("codec_backend", ["reference", "fused"])
+@pytest.mark.parametrize("hostile", [False, True], ids=["clean", "hostile"])
+@pytest.mark.parametrize("codec", list(CODECS))
+def test_engine_codec_parity_with_jax(small_games, codec, hostile,
+                                      codec_backend):
+    jg, tg = small_games
+    je = _jax_codec_engine(jg, codec_backend, compressor=CODECS[codec](jps),
+                           **(_hostile(jps) if hostile else {}))
+    te = _port_codec_engine(tg, codec_backend,
+                            compressor=CODECS[codec](tps),
+                            **(_hostile(tps) if hostile else {}))
+    _assert_matches_jax(te, te.run(), je, je.run())
+
+
+@pytest.mark.parametrize("hostile", [False, True], ids=["clean", "hostile"])
+@pytest.mark.parametrize("codec", list(CODECS))
+def test_codec_backends_agree_bitwise_within_the_port(small_games, codec,
+                                                      hostile):
+    _, tg = small_games
+    runs = []
+    for cb in ("reference", "fused"):
+        eng = _port_codec_engine(tg, cb, rounds=4,
+                                 compressor=CODECS[codec](tps),
+                                 **(_hostile(tps) if hostile else {}))
+        runs.append((eng.run(), eng))
+    (z_r, ref), (z_f, fused) = runs
+    _assert_bitwise(z_r, z_f)
+    _assert_bitwise(ref.state.z_tilde, fused.state.z_tilde)
+    _assert_bitwise(ref._ef, fused._ef)
+    assert ([r.residual for r in ref.trace.rounds]
+            == [r.residual for r in fused.trace.rounds])
+
+
+@pytest.mark.parametrize("codec", ["top25", "q8"])
+def test_codec_rerun_and_resume_are_bit_identical(small_games, codec):
+    _, tg = small_games
+
+    def engine():
+        return _port_codec_engine(tg, "fused", rounds=4,
+                                  compressor=CODECS[codec](tps),
+                                  **_hostile(tps))
+
+    one = engine()
+    z_one = one.run()
+    again = engine()
+    z_again = again.run()
+    split = engine()
+    split.run(until_round=2)
+    assert split.round == 2
+    z_split = split.run()
+    for other, z in ((again, z_again), (split, z_split)):
+        _assert_bitwise(z_one, z)
+        _assert_bitwise(one._ef, other._ef)
+        assert ([r.residual for r in one.trace.rounds]
+                == [r.residual for r in other.trace.rounds])
+    assert float(sum(v.abs().sum() for v in one._ef)) > 0.0
+
+
+POLICIES = {
+    "uniform": lambda mod: mod.UniformSchedule(k=3),
+    "fixed": lambda mod: mod.FixedSchedule([3, 1, 4, 2]),
+    "straggler": lambda mod: mod.StragglerSchedule(k=6, min_frac=0.4, seed=1,
+                                                   slow_workers=(2,)),
+    "elastic": lambda mod: mod.ElasticSchedule(
+        mod.StragglerSchedule(k=5, seed=2), dropout=0.3, seed=4),
+    "no_faults": lambda mod: mod.NoFaults(),
+    "bernoulli": lambda mod: mod.BernoulliFaults(p=0.4, seed=3),
+    "bernoulli_unprotected": lambda mod: mod.BernoulliFaults(
+        p=0.9, seed=1, protect_one=False),
+    "outage": lambda mod: mod.OutageFaults(events=((1, 1, 3), (3, 0, 2))),
+}
+
+
+@pytest.mark.parametrize("name", list(POLICIES))
+def test_policy_tables_equal_jax(name):
+    ours, theirs = POLICIES[name](tps), POLICIES[name](jps)
+    if hasattr(ours, "steps"):
+        assert ours.max_steps(M) == theirs.max_steps(M)
+        got, want = ours.steps(M, 7), theirs.steps(M, 7)
+    else:
+        got, want = ours.alive(M, 7), theirs.alive(M, 7)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+FLEETS = {
+    # every worker down in round 1: nobody receives, anchors carry over
+    "outage_all_identity": (
+        "identity", lambda mod: dict(faults=mod.OutageFaults(
+            events=tuple((m, 1, 2) for m in range(M))))),
+    "fixed_outage_top25": (
+        "top25", lambda mod: dict(schedule=mod.FixedSchedule([4, 2, 3, 1]),
+                                  faults=mod.OutageFaults(
+                                      events=((1, 1, 3),)))),
+    "elastic_bernoulli_q8": (
+        "q8", lambda mod: dict(
+            schedule=mod.ElasticSchedule(mod.UniformSchedule(k=4),
+                                         dropout=0.3, seed=3),
+            faults=mod.BernoulliFaults(p=0.5, seed=9, protect_one=False))),
+}
+
+
+@pytest.mark.parametrize("codec_backend", ["reference", "fused"])
+@pytest.mark.parametrize("fleet", list(FLEETS))
+def test_engine_schedules_and_faults_match_jax(small_games, fleet,
+                                               codec_backend):
+    jg, tg = small_games
+    codec, policies = FLEETS[fleet]
+    je = _jax_codec_engine(jg, codec_backend, rounds=4,
+                           compressor=CODECS[codec](jps), **policies(jps))
+    te = _port_codec_engine(tg, codec_backend, rounds=4,
+                            compressor=CODECS[codec](tps), **policies(tps))
+    _assert_matches_jax(te, te.run(), je, je.run())
+    if fleet == "outage_all_identity":
+        assert te.trace.rounds[1].alive == [False] * M
+        assert te.trace.rounds[1].bytes_up == 0
+
+
+def test_ef_from_numpy_carries_a_jax_run_into_the_port(small_games):
+    """A JAX engine's mid-run (state, ef), carried over as numpy, continues
+    in the port to the JAX engine's own end."""
+    jg, tg = small_games
+    kw = dict(compressor=CODECS["q8"](jps), **_hostile(jps))
+    je = _jax_codec_engine(jg, rounds=4, **kw)
+    je.run(until_round=2)
+    ef_np = [np.asarray(v) for v in jax.tree.leaves(je._ef)]
+    ef = interop.ef_from_numpy(ef_np, device="cpu")
+    for a, b in zip(ef, ef_np):
+        np.testing.assert_array_equal(a.numpy(), b)
+    fields = {k: (tuple(np.asarray(v) for v in getattr(je.state, k))
+                  if k in ("z_tilde", "z_bar")
+                  else np.asarray(getattr(je.state, k)))
+              for k in je.state._fields}
+    te = _port_codec_engine(tg, rounds=4, compressor=CODECS["q8"](tps),
+                            **_hostile(tps))
+    te._state = interop.state_from_numpy(fields, device="cpu")
+    te._ef, te.round = ef, 2
+    z_t = te.run()
+    z_j = je.run()
+    for a, b in zip(z_t, z_j):
+        _close(a, b)
+    for a, b in zip(te._ef, jax.tree.leaves(je._ef)):
+        _close(a, b)
+    _close([r.residual for r in te.trace.rounds],
+           [r.residual for r in je.trace.rounds[2:]])
+    assert interop.ef_from_numpy((), device="cpu") == ()
+
+
+def test_codec_backend_is_validated(small_games):
+    _, tg = small_games
+    with pytest.raises(ValueError, match="codec backend"):
+        _port_codec_engine(tg, "turbo")
+
+    class Custom(tps.IdentityCompressor):
+        @property
+        def codec_spec(self):
+            return None
+
+    with pytest.raises(ValueError, match="codec_spec"):
+        _port_codec_engine(tg, "fused", compressor=Custom())
+    assert _port_codec_engine(tg, compressor=Custom())._ef == ()

@@ -92,7 +92,8 @@ def test_bindings_match_the_c_entry_points():
     launcher (a missing one would shift every later argument)."""
     names = {k.name for k in _build.KERNELS}
     assert names == {"adaseg_explore", "adaseg_anchor", "adaseg_finish",
-                     "merge_stacked"}
+                     "merge_stacked", "uplink_stats", "quantize_uplink",
+                     "eff_uplink", "mask_uplink"}
     for k in _build.KERNELS:
         assert (PKG / "csrc" / k.source).is_file()
         assert _c_params(k.source, k.symbol) == len(k.argtypes), k.name
@@ -137,7 +138,8 @@ def test_interop_keys_round_trip():
 DOCTEST_MODULES = [
     "repro_torch.random", "repro_torch.interop", "repro_torch.core.worker",
     "repro_torch.kernels.adaseg_update.ops",
-    "repro_torch.kernels.sync_compress.ops", "repro_torch.obs.spans",
+    "repro_torch.kernels.sync_compress.ops",
+    "repro_torch.kernels.sync_compress.ref", "repro_torch.obs.spans",
     "repro_torch.ps.compress", "repro_torch.ps.engine",
     "repro_torch.ps.faults", "repro_torch.ps.schedule", "repro_torch.ps.trace",
 ]

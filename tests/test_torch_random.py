@@ -114,3 +114,24 @@ def test_keys_must_be_int64_pairs():
         jr.split(torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError):
         jr.uniform(torch.zeros(2, dtype=torch.int32), (3,))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("data", [0, 1, 7, 11, 13, 2**31, 2**32 - 1])
+def test_fold_in_bit_exact(seed, data):
+    want = _np(jax.random.fold_in(jax.random.PRNGKey(seed), data))
+    got = jr.fold_in(jr.PRNGKey(seed, device="cpu"), data).numpy()
+    np.testing.assert_array_equal(want, got)
+
+
+def test_fold_in_batched_keys_and_range():
+    """The engine folds 7 into each round key: per key, as vmap gives."""
+    kj = jax.random.split(jax.random.PRNGKey(5), 4)
+    kt = jr.split(jr.PRNGKey(5, device="cpu"), 4)
+    np.testing.assert_array_equal(
+        _np(jax.vmap(lambda k: jax.random.fold_in(k, 7))(kj)),
+        jr.fold_in(kt, 7).numpy())
+    np.testing.assert_array_equal(
+        jr.fold_in(kt[0], 7).numpy(), jr.split(kt[0], 8)[7].numpy())
+    with pytest.raises(ValueError):
+        jr.fold_in(kt[0], 2**32)
