@@ -35,7 +35,19 @@ nothing of JAX. Phases, one JSON line each:
    backends. The residual must be finite and fall, each codec's kernels
    must have launched, the two backends' residual traces must agree within
    rtol 1e-4, and the uplink's time per sync is reported beside the
-   round's wall time.
+   round's wall time;
+7. robust — the same game with a hostile fleet and the server's outer
+   optimizer (``robust_kernels`` first holds the robust merge and the outer
+   step against their plain versions, ties and a dead row included): a
+   sign-flip attack on 20% of the fleet under the plain mean, a trimmed
+   mean, the coordinate median and multi-Krum; a clean fleet under outer
+   Nesterov and outer Adam; and everything stacked (attack, DP, q8 with
+   error feedback, faults, trimmed mean, Nesterov). Each runs on the fused
+   and the reference backends, which must agree within rtol 1e-4; the
+   median must end below the plain mean; the robust merge and the outer
+   step must have launched where they run. Then a fused trimmed+Nesterov
+   run is checkpointed at round 2, restored into a new engine and run on,
+   and must equal the uninterrupted run bit for bit.
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -57,11 +69,15 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# f32 instructions that are not FMAs (compares, selects, adds): 128 lanes per
+# SM per clock, times the SMs and the maximum SM clock (set by the device
+# phase).
+F32_LANES_PER_SM_CLOCK = 128
 # int32 throughput: 64 lanes per SM per clock (Hopper's integer pipes) times
 # the SMs times the maximum SM clock nvidia-smi reports (set by the device
 # phase).
 INT32_LANES_PER_SM_CLOCK = 64
-CARD = {"int32_ops_per_s": None}
+CARD = {"int32_ops_per_s": None, "f32_issue_per_s": None}
 # Live int32 operations per element of the quantize kernel: 68 for
 # threefry2x32 once the compiler drops what the first output word does not
 # need (19 mixes of add, funnel shift and xor, the last mix's add, 9 key
@@ -84,6 +100,15 @@ CODEC_SCHEDULE = dict(k=K, min_frac=0.5, seed=5)
 CODEC_FAULTS = dict(p=0.1, seed=3)
 LEVELS = 255.0       # 8-bit stochastic quantization
 DEAD_ROW = 3         # the dead worker of the uplink kernel checks
+# Robust phase: the repo's hostile-fleet scenario (benchmarks/
+# bench_fig4_scenarios.py, examples/ps_simulate.py).
+ATTACK = dict(fraction=0.2, scale=8.0, seed=11)
+TRIMS = (12, 31)     # TrimmedMean(0.2) and CoordinateMedian() at M = 64
+# Operations per rank pair of the robust merge: two compares and a masked
+# add.
+TRIM_PAIR_OPS = 3
+TOL_REL_STAT = 1e-5  # the outer step's Σ Δ², summed in another order
+OUTER_SETS = 160     # (1, n) timing sets: 160 × 7 × 64 KiB > the 50 MB L2
 
 
 def emit(phase: str, **fields) -> None:
@@ -144,13 +169,16 @@ def graph_ms(calls, trials: int = 11) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float,
-          int_ops: float = 0.0) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, int_ops: float = 0.0,
+          issue_ops: float = 0.0) -> tuple[float, str]:
     """Least ms for the work: the larger of the bytes over the HBM rate and
-    the operations (f32 and int32, each over its own peak) over time."""
+    the operations (f32 FLOPs, int32 and non-FMA f32 operations, each over
+    its own peak) over time."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / F32_FLOPS_PER_S,
-                int_ops / CARD["int32_ops_per_s"] if int_ops else 0.0) * 1e3
+                int_ops / CARD["int32_ops_per_s"] if int_ops else 0.0,
+                issue_ops / CARD["f32_issue_per_s"] if issue_ops else 0.0
+                ) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -178,6 +206,7 @@ def phase_device():
     ).stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["int32_ops_per_s"] = INT32_LANES_PER_SM_CLOCK * sms * clock_mhz * 1e6
+    CARD["f32_issue_per_s"] = F32_LANES_PER_SM_CLOCK * sms * clock_mhz * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -187,7 +216,8 @@ def phase_device():
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, sms=sms, max_sm_clock_mhz=clock_mhz,
-         int32_ops_per_s=CARD["int32_ops_per_s"])
+         int32_ops_per_s=CARD["int32_ops_per_s"],
+         f32_issue_per_s=CARD["f32_issue_per_s"])
     return smi
 
 
@@ -674,6 +704,312 @@ def phase_codec(results, game):
               f"{label}: fused vs reference residuals differ by {rel}")
 
 
+def phase_robust_kernels(results):
+    """The robust merge (B10) and the outer step (B11) against their plain
+    versions, and their times. B10: trims 12 and 31, non-uniform weights,
+    with and without a dead row (incl = recv = 0, keeps ``old``), and on
+    inputs rounded to nine levels (ties everywhere); a 256-worker fleet
+    (opt-in shared memory), and a fleet too large, which must be refused.
+    B11: each policy at t = 0 and t = 5."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+    from repro_torch.kernels.sync_compress import ref as sr
+    from repro_torch.ps import ServerAdam, ServerMomentum, ServerNesterov
+
+    dev = torch.device("cuda")
+    src = "src/repro_torch/csrc/sync_compress.cu"
+
+    def trim_inputs(seed, n, dead=False, ties=False):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        z = torch.rand(M, n, generator=gen, device=dev) * 2 - 1
+        if ties:
+            z = torch.round(z * 4) / 4
+        w = torch.rand(M, generator=gen, device=dev) * 1.9 + 0.1
+        incl = torch.ones(M, device=dev)
+        recv = None
+        if dead:
+            w[DEAD_ROW] = incl[DEAD_ROW] = 0.0
+            recv = incl.clone()
+        return dict(z=z, w=w, incl=incl, recv=recv,
+                    old=torch.rand(M, n, generator=gen, device=dev),
+                    out=torch.empty(M, n, device=dev))
+
+    err = 0.0
+    for n in (N, N_RAGGED):
+        for trim in TRIMS:
+            for dead in (False, True):
+                for ties in (False, True):
+                    x = trim_inputs(7, n, dead, ties)
+                    got = sk.trimmed_merge_stacked(
+                        x["z"], x["w"], x["incl"], x["recv"], x["old"],
+                        trim=trim)
+                    want = sr.trimmed_merge_ref(
+                        x["z"], x["w"], x["incl"], trim=trim,
+                        recv=None if x["recv"] is None else x["recv"] > 0,
+                        old=x["old"])
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs(got, want))
+                    if dead:
+                        check(torch.equal(got[DEAD_ROW], x["old"][DEAD_ROW]),
+                              "trimmed_merge_stacked: the dead row did not "
+                              "keep old")
+    # Fleets past the default 48 KB of shared memory take the opt-in
+    # carve-out (M = 256 needs 68.6 KB); past 227 KB the wrapper refuses.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    z = torch.rand(256, 1031, generator=gen, device=dev)
+    w = torch.rand(256, generator=gen, device=dev) + 0.5
+    incl = torch.ones(256, device=dev)
+    got = sk.trimmed_merge_stacked(z, w, incl, trim=51)
+    want = sr.trimmed_merge_ref(z, w, incl, trim=51)
+    torch.cuda.synchronize()
+    err = max(err, max_abs(got, want))
+    big = sk.TRIMMED_MAX_ROWS + 1
+    try:
+        sk.trimmed_merge_stacked(torch.zeros(big, 8, device=dev),
+                                 torch.ones(big, device=dev),
+                                 torch.ones(big, device=dev), trim=1)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"trimmed_merge_stacked accepted {big} rows")
+    check(err <= TOL_ELEM, f"trimmed_merge_stacked: max abs err {err}")
+    sets = [trim_inputs(300 + i, N) for i in range(12)]
+    for trim in TRIMS:
+        ms = graph_ms([lambda x=x: sk.TRIMMED(
+            x["z"].data_ptr(), x["w"].data_ptr(), x["incl"].data_ptr(), None,
+            None, x["out"].data_ptr(), M, N, float(trim),
+            sk._build.stream_of(x["z"])) for x in sets * 2])
+        plain_ms = graph_ms([lambda x=x: sr.trimmed_merge_ref(
+            x["z"], x["w"], x["incl"], trim=trim) for x in sets])
+        # read z and the (M,) vectors, write the (M, n) broadcast; every
+        # row is included, so each column ranks M × M pairs
+        b_ms, b_by = bound(4 * (2 * M * N + 2 * M), 0.0,
+                           issue_ops=TRIM_PAIR_OPS * M * M * N)
+        row = dict(name="trimmed_merge_stacked", route="cuda", source=src,
+                   replaces="src/repro/kernels/sync_compress/kernel.py:446",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if trim == TRIMS[0]:
+            results["trimmed_merge_stacked"] = row
+        emit("kernel", **row, trim=trim,
+             library="none: torch.median returns the lower middle for an "
+                     "even M, and takes no weights or trim")
+
+    policies = (("momentum", ServerMomentum(lr=0.7, beta=0.9)),
+                ("nesterov", ServerNesterov(lr=1.0, beta=0.3)),
+                ("adam", ServerAdam()), ("adam_lr", ServerAdam(lr=0.3)))
+
+    def outer_inputs(seed, n, slots):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def u(lo=-1.0, hi=1.0):
+            u01 = torch.rand(1, n, generator=gen, device=dev)
+            return u01 * (hi - lo) + lo
+
+        mom = (u(),) if slots == 1 else (u(), u(0.0, 1.0))
+        return dict(g=u(), z=u(), mom=mom, zo=torch.empty(1, n, device=dev),
+                    mo=tuple(torch.empty(1, n, device=dev) for _ in mom),
+                    part=torch.empty((n + sk.OUTER_TILE - 1) // sk.OUTER_TILE,
+                                     device=dev))
+
+    err = rel = 0.0
+    for label, pol in policies:
+        for n in (N, N_RAGGED):
+            for t in (0, 5):
+                x = outer_inputs(11, n, pol.slots)
+                tt = torch.tensor(float(t), device=dev)
+                got = sk.outer_apply(x["g"], x["z"], x["mom"], tt,
+                                     spec=pol.spec)
+                want = sr.outer_apply_ref(x["g"], x["z"], x["mom"], tt,
+                                          spec=pol.spec)
+                torch.cuda.synchronize()
+                for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+                    err = max(err, max_abs(a, b))
+                rel = max(rel, rel_err(got[2], want[2]))
+    check(err <= TOL_ELEM, f"outer_apply: max abs err {err}")
+    check(rel <= TOL_REL_STAT, f"outer_apply: delta_sq rel err {rel}")
+    for label, pol in policies[:3]:
+        spec = pol.spec
+        sets = [outer_inputs(400 + i, N, pol.slots)
+                for i in range(OUTER_SETS)]
+        t5 = torch.tensor(5.0, device=dev)
+        bias = (sr.adam_bias(spec[2], spec[3], t5) if label == "adam"
+                else None)
+
+        def launch(x, spec=spec, bias=bias):
+            m1 = x["mom"][1].data_ptr() if len(x["mom"]) == 2 else None
+            mo1 = x["mo"][1].data_ptr() if len(x["mo"]) == 2 else None
+            sk.OUTER(x["g"].data_ptr(), x["z"].data_ptr(),
+                     x["mom"][0].data_ptr(), m1,
+                     None if bias is None else bias.data_ptr(),
+                     x["zo"].data_ptr(), x["mo"][0].data_ptr(), mo1,
+                     x["part"].data_ptr(), N, sk.OUTER_TILE,
+                     *sk.outer_scalars(spec), sk._build.stream_of(x["z"]))
+
+        ms = graph_ms([lambda x=x: launch(x) for x in sets])
+        plain_ms = graph_ms([lambda x=x: sr.outer_apply_ref(
+            x["g"], x["z"], x["mom"], t5, spec=spec) for x in sets[:12]])
+        rows_moved = (3 + 2) if pol.slots == 1 else (4 + 3)
+        parts = (N + sk.OUTER_TILE - 1) // sk.OUTER_TILE
+        flops = (6 if pol.slots == 1 else 14) * N
+        b_ms, b_by = bound(4 * (rows_moved * N + parts), flops)
+        row = dict(name="outer_apply", route="cuda", source=src,
+                   replaces="src/repro/kernels/sync_compress/kernel.py:488",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if label == "nesterov":
+            results["outer_apply"] = row
+        emit("kernel", **row, policy=label, delta_sq_rel_err=rel,
+             library="none: no PyTorch call applies an outer momentum, "
+                     "Nesterov or Adam step and sums the delta's squares")
+
+
+def phase_robust(results, game):
+    """The hostile fleet and the outer optimizer on the main path's game,
+    each run through the fused and the reference backends; then the
+    checkpoint resume check."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.sync_compress.ops import (
+        server_outer_apply,
+        sync_merge_stacked,
+    )
+    from repro_torch.ps import (
+        BernoulliFaults,
+        CoordinateMedian,
+        DPUplink,
+        MultiKrum,
+        PSConfig,
+        PSEngine,
+        ServerAdam,
+        ServerNesterov,
+        SignFlipAttack,
+        StochasticQuantizeCompressor,
+        TrimmedMean,
+    )
+
+    attack = SignFlipAttack(**ATTACK)
+    nesterov = ServerNesterov(lr=1.0, beta=0.3)
+    runs = {
+        "mean_attack": dict(byzantine=attack),
+        "trimmed": dict(byzantine=attack, aggregator=TrimmedMean(beta=0.2)),
+        "median": dict(byzantine=attack, aggregator=CoordinateMedian()),
+        "krum": dict(byzantine=attack, aggregator=MultiKrum(f=13)),
+        "nesterov": dict(server_opt=nesterov),
+        "adam": dict(server_opt=ServerAdam()),
+        "stack": dict(byzantine=attack,
+                      dp=DPUplink(clip=DIAMETER, sigma=1e-4),
+                      compressor=StochasticQuantizeCompressor(bits=8),
+                      faults=BernoulliFaults(**CODEC_FAULTS),
+                      aggregator=TrimmedMean(beta=0.2), server_opt=nesterov),
+    }
+    expect = {"trimmed": ("trimmed_merge_stacked",),
+              "median": ("trimmed_merge_stacked",),
+              "stack": ("trimmed_merge_stacked", "outer_apply",
+                        "quantize_uplink"),
+              "nesterov": ("outer_apply",), "adam": ("outer_apply",)}
+    finals = {}
+    for label, kw in runs.items():
+        reset_launches()
+        res_f, ms_f, eng = run_engine(game, game.problem, "fused", R, **kw)
+        path_launches = launches()
+        for name in expect.get(label, ()) + ("merge_stacked",) * (
+                label in ("mean_attack", "krum", "nesterov", "adam")):
+            check(path_launches[name] > 0,
+                  f"{label}: {name} never launched on its path")
+        if label == "trimmed":
+            results["trimmed_merge_stacked"]["launches"] = path_launches[
+                "trimmed_merge_stacked"]
+        if label == "nesterov":
+            results["outer_apply"]["launches"] = path_launches["outer_apply"]
+        finals[label] = res_f[-1]
+
+        # The server side alone, at the last round's payload and weights.
+        payload = eng.worker.sync_payload(eng.state)
+        sw = eng.worker.sync_weight(eng.state)
+        agg = None if eng._robust is None else eng._robust.agg
+
+        def server_side(use_kernel, eng=eng, payload=payload, sw=sw,
+                        agg=agg):
+            merged = sync_merge_stacked(payload, sw, normalize=True, agg=agg,
+                                        use_kernel=use_kernel)
+            if eng._server is not None:
+                server_outer_apply(tuple(v[:1] for v in merged),
+                                   *eng._srv, spec=eng._server.spec,
+                                   use_kernel=use_kernel)
+
+        sync_ms = {backend: time_ms(lambda uk=uk: server_side(uk), reps=5,
+                                    trials=5)
+                   for backend, uk in (("fused", True), ("reference", False))}
+
+        res_r, ms_r, eng_r = run_engine(game, game.problem, "reference", R,
+                                        **kw)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res_f, res_r))
+        for backend, res, ms, e in (("fused", res_f, ms_f, eng),
+                                    ("reference", res_r, ms_r, eng_r)):
+            rounds = e.trace.rounds
+            emit("robust", run=label, backend=backend, residuals=res,
+                 ms_per_local_step=ms,
+                 round_wall_ms=statistics.mean(r.wall_time_s * 1e3
+                                               for r in rounds),
+                 server_ms_per_sync=sync_ms[backend],
+                 byzantine_workers=[len(r.byzantine_workers or [])
+                                    for r in rounds],
+                 outer_lr=[r.outer_lr for r in rounds],
+                 delta_norm=[r.delta_norm for r in rounds],
+                 meta={k: e.trace.meta.get(k) for k in
+                       ("byzantine", "aggregator", "dp", "server_opt")},
+                 **({"launches": path_launches} if backend == "fused"
+                    else {"max_rel_vs_fused": rel}))
+        check(rel <= TOL_TRACE,
+              f"{label}: fused vs reference residuals differ by {rel}")
+    check(finals["median"] < finals["mean_attack"],
+          f"median ({finals['median']}) did not beat the plain mean under "
+          f"attack ({finals['mean_attack']})")
+
+    # Resume: fused trimmed+Nesterov, checkpointed at round 2.
+    kw = dict(byzantine=attack, aggregator=TrimmedMean(beta=0.2),
+              server_opt=nesterov)
+
+    def engine():
+        from repro_torch import random as jr
+        from repro_torch.core import AdaSEGConfig
+
+        cfg = AdaSEGConfig(g0=G0, diameter=DIAMETER, k=K)
+        return PSEngine(game.problem,
+                        PSConfig(adaseg=cfg, num_workers=M, rounds=R,
+                                 backend="fused", codec_backend="fused",
+                                 **kw),
+                        rng=jr.PRNGKey(1), eval_fn=game.residual)
+
+    whole = engine()
+    whole.run()
+    first = engine()
+    first.run(until_round=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "engine.ckpt")
+        first.save(path)
+        size = Path(path).stat().st_size
+        resumed = engine().restore(path)
+    check(resumed.round == 2, "restore did not set the round")
+    resumed.run()
+    same = ([r.residual for r in resumed.trace.rounds]
+            == [r.residual for r in whole.trace.rounds[2:]])
+    def leaves(e):
+        return [*e.state.z_tilde, e.state.sum_sq, e.state.t, *e.state.z_bar,
+                e.state.grad_sq_sum, *e._srv[0], *e._srv[1][0], e._srv[2]]
+
+    same = same and all(torch.equal(a, b)
+                        for a, b in zip(leaves(resumed), leaves(whole)))
+    emit("resume", run="trimmed+nesterov", backend="fused", saved_round=2,
+         checkpoint_bytes=size, bit_identical=same,
+         residuals=[r.residual for r in resumed.trace.rounds])
+    check(same, "the resumed run differs from the uninterrupted one")
+
+
 def main() -> int:
     import torch
 
@@ -687,8 +1023,10 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     phase_codec_kernels(results)
+    phase_robust_kernels(results)
     game = phase_main(results)
     phase_codec(results, game)
+    phase_robust(results, game)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -193,10 +193,34 @@ def local_step(
 # ---------------------------------------------------------------------------
 
 def sync_weighted_stacked(z_tilde: PyTree, inv_eta: torch.Tensor, *,
-                          backend: str = "reference"):
+                          backend: str = "reference", server=None, srv=None):
     """Weighted average over the leading worker axis, broadcast back to
     every worker. ``backend="fused"`` runs the merge kernel, which
-    normalises the 1/η weights in-register."""
+    normalises the 1/η weights in-register.
+
+    ``server``/``srv`` compose the server-side outer optimizer
+    (:mod:`repro_torch.ps.server_opt`) downstream of the merge: the Line-7
+    mean becomes the pseudo-gradient Δ against the server anchor ``srv =
+    (z, moments, t)``, the outer step runs (its kernel under
+    ``backend="fused"``) and the *post-step* anchor is broadcast instead of
+    the raw mean. The return value is then ``(synced, srv_new, telem)``
+    with ``telem = [eff_lr, ‖Δ‖]``."""
+    if server is not None:
+        from ..kernels.sync_compress.ops import (
+            server_outer_apply,
+            sync_merge_stacked,
+        )
+
+        use_kernel = backend == "fused"
+        merged = sync_merge_stacked(z_tilde, inv_eta, normalize=True,
+                                    use_kernel=use_kernel)
+        z, mom, t = srv
+        z_new, mom_new, t_new, eff_lr, dn = server_outer_apply(
+            tuple(v[:1] for v in merged), z, mom, t, spec=server.spec,
+            use_kernel=use_kernel)
+        synced = tuple(v.expand(old.shape).contiguous()
+                       for v, old in zip(z_new, z_tilde))
+        return synced, (z_new, mom_new, t_new), torch.stack([eff_lr, dn])
     if backend == "fused":
         from ..kernels.sync_compress.ops import sync_merge_stacked
 

@@ -51,6 +51,45 @@
 // first output word, top 23 bits as the mantissa of [1, 2) minus 1 -- the
 // stream of the plain version, bit for bit.
 //
+// trimmed_merge_launch replaces the Pallas kernel trimmed_merge_stacked of
+// the same file (def :446, pallas_call :477, body _trimmed_kernel :178): the
+// robust server merge. Per column j and row i the stable rank is
+//   rank_ij = sum_k incl_k [z_kj < z_ij or (z_kj = z_ij and k < i)];
+// with b = min(trim, floor((n_incl - 1) / 2)), rows with incl_i > 0 and
+// b <= rank_ij <= n_incl - 1 - b survive, and every row receives
+// sum_i w_i keep_ij z_ij / max(sum_i w_i keep_ij, 1e-30) (rows with recv = 0
+// keep old instead). Bound on an H100: operations, not bytes. At (64, 16384)
+// it moves 8 MiB (2.5 us at 3.35 TB/s; 3.8 us with recv/old) but does
+// 64^2 * 16384 = 6.7e7 rank pairs of about 3 operations each (two compares
+// and a masked add), 2.0e8 operations: 6.1 us at the f32 non-FMA issue rate
+// of 132 SMs x 128 lanes x 1980 MHz. Design: a block owns 64 columns, one
+// per thread, and stages its (M, 64) slice in shared memory (a thread reads
+// only its own column, so the slice needs no synchronisation; neighbouring
+// threads hit neighbouring banks). Each thread ranks four rows at a time
+// against the whole column (one shared load feeds four compares, four
+// independent add chains), then adds the kept rows' w z and w in row order
+// 0..M-1 -- the plain version's survivor set exactly, and a fixed sum
+// order, with no atomics. The slice takes 4 M (64 + 3) bytes of shared
+// memory: M <= 183 fits the default 48 KB, M <= 867 the opt-in 227 KB,
+// larger fleets are refused by the wrapper. The ragged column edge is
+// masked by the column bound.
+//
+// outer_apply_launch replaces the Pallas kernel outer_apply (def :488,
+// pallas_call :518, body _outer_kernel :240): the server's outer step on
+// the (1, n) server leaf. Delta = merged - z, then momentum
+// (m' = b m + Delta, z' = z + lr m'), Nesterov (z' = z + lr (Delta + b m'))
+// or Adam (bias-corrected with t + 1), and one partial sum of Delta^2 per
+// block. Bound on an H100: bytes (momentum and Nesterov read 3 and write 2
+// rows, Adam reads 4 and writes 3: 0.10 and 0.14 us at n = 16384), so at
+// the game's size the launch itself sets the time. Design: elementwise
+// over column tiles; every a b + c of the update is one __fmaf_rn and the
+// other steps use _rn intrinsics, the roundings XLA gives the JAX package
+// on the CPU; Adam's bias factors 1 - b^(t+1) come precomputed from the
+// wrapper (one f32 pow each, shared with the plain version), and at
+// lr = 1 the step is m' / ((1 - b1^(t+1)) (sqrt(v_hat) + eps)), XLA's
+// rewrite of (a / b) / c. The Delta^2 partial is a fixed-order block
+// reduction; the wrapper sums the partials.
+//
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
@@ -349,6 +388,133 @@ mask_kernel(const float* __restrict__ eff, const uint8_t* __restrict__ mask,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B10 robust merge: one thread per column, the block's (M, 64) slice staged
+// in shared memory.
+// ---------------------------------------------------------------------------
+constexpr int kTrimCols = 64;
+constexpr int kTrimGroup = 4;  // rows ranked together per pass
+
+__global__ void __launch_bounds__(kTrimCols)
+trimmed_kernel(const float* __restrict__ z, const float* __restrict__ w,
+               const float* __restrict__ incl, const float* __restrict__ recv,
+               const float* __restrict__ old, float* __restrict__ out,
+               int rows, int n, float trim) {
+  extern __shared__ float sh[];
+  float* w_sh = sh;                        // rows
+  float* incl_sh = w_sh + rows;            // rows
+  float* recv_sh = incl_sh + rows;         // rows (1 = receives)
+  float* col_sh = recv_sh + rows;          // rows x kTrimCols
+  __shared__ float n_incl_sh;
+  for (int i = threadIdx.x; i < rows; i += kTrimCols) {
+    w_sh[i] = w[i];
+    incl_sh[i] = incl[i];
+    recv_sh[i] = (recv == nullptr || recv[i] > 0.f) ? 1.f : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int i = 0; i < rows; ++i) s = __fadd_rn(s, incl_sh[i]);
+    n_incl_sh = s;
+  }
+  __syncthreads();
+  const float n_incl = n_incl_sh;
+  const float b = fminf(trim, floorf(__fmul_rn(__fsub_rn(n_incl, 1.f), 0.5f)));
+  const float hi = __fsub_rn(__fsub_rn(n_incl, 1.f), b);
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTrimCols + threadIdx.x;
+  if (col >= n) return;
+
+  float* mine = col_sh + threadIdx.x;      // this thread's column, stride kTrimCols
+  for (int k = 0; k < rows; ++k) mine[k * kTrimCols] = z[static_cast<int64_t>(k) * n + col];
+
+  float num = 0.f, den = 0.f;
+  for (int i0 = 0; i0 < rows; i0 += kTrimGroup) {
+    float zi[kTrimGroup], rank[kTrimGroup];
+#pragma unroll
+    for (int u = 0; u < kTrimGroup; ++u) {
+      zi[u] = (i0 + u < rows) ? mine[(i0 + u) * kTrimCols] : 0.f;
+      rank[u] = 0.f;
+    }
+    for (int k = 0; k < rows; ++k) {
+      const float zk = mine[k * kTrimCols];
+      const float ik = incl_sh[k];
+#pragma unroll
+      for (int u = 0; u < kTrimGroup; ++u) {
+        const bool less = zk < zi[u] || (zk == zi[u] && k < i0 + u);
+        rank[u] = __fadd_rn(rank[u], less ? ik : 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTrimGroup; ++u) {
+      const int i = i0 + u;
+      if (i < rows && incl_sh[i] > 0.f && rank[u] >= b && rank[u] <= hi) {
+        num = __fadd_rn(num, __fmul_rn(w_sh[i], zi[u]));
+        den = __fadd_rn(den, w_sh[i]);
+      }
+    }
+  }
+  const float mean = __fdiv_rn(num, fmaxf(den, 1e-30f));
+  for (int i = 0; i < rows; ++i) {
+    const int64_t off = static_cast<int64_t>(i) * n + col;
+    out[off] = recv_sh[i] > 0.f ? mean : old[off];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B11 outer step: elementwise over column tiles of the (1, n) server leaf.
+// ---------------------------------------------------------------------------
+constexpr int kOuterThreads = 256;
+enum OuterKind { kMomentum = 0, kNesterov = 1, kAdam = 2 };
+
+__global__ void __launch_bounds__(kOuterThreads)
+outer_kernel(const float* __restrict__ g, const float* __restrict__ z,
+             const float* __restrict__ m0, const float* __restrict__ m1,
+             const float* __restrict__ bias, float* __restrict__ z_out,
+             float* __restrict__ m0_out, float* __restrict__ m1_out,
+             float* __restrict__ part, int n, int tile, int kind, float lr,
+             float beta1, float beta2, float eps, float c1, float c2) {
+  const int start = blockIdx.x * tile;
+  const int end = min(start + tile, n);
+  const float bc1 = kind == kAdam ? bias[0] : 1.f;
+  const float bc2 = kind == kAdam ? bias[1] : 1.f;
+  float acc = 0.f;
+  for (int j = start + threadIdx.x; j < end; j += kOuterThreads) {
+    const float zz = z[j];
+    const float d = __fsub_rn(g[j], zz);
+    float zn;
+    if (kind == kAdam) {
+      const float mn = __fmaf_rn(beta1, m0[j], __fmul_rn(c1, d));
+      const float vn = __fmaf_rn(beta2, m1[j], __fmul_rn(__fmul_rn(c2, d), d));
+      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), eps);
+      const float step = lr == 1.f
+          ? __fdiv_rn(mn, __fmul_rn(bc1, den))
+          : __fdiv_rn(__fmul_rn(lr, __fdiv_rn(mn, bc1)), den);
+      zn = __fadd_rn(zz, step);
+      m0_out[j] = mn;
+      m1_out[j] = vn;
+    } else {
+      const float mn = __fmaf_rn(beta1, m0[j], d);
+      const float st = kind == kNesterov ? __fmaf_rn(beta1, mn, d) : mn;
+      zn = __fmaf_rn(lr, st, zz);
+      m0_out[j] = mn;
+    }
+    z_out[j] = zn;
+    acc = __fadd_rn(acc, __fmul_rn(d, d));
+  }
+  __shared__ float smem[kOuterThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  }
+  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int i = 0; i < kOuterThreads / 32; ++i) s = __fadd_rn(s, smem[i]);
+    part[blockIdx.x] = s;
+  }
+}
+
 dim3 uplink_grid(int rows, int n, int tile) {
   return dim3(static_cast<unsigned>((n + tile - 1) / tile),
               static_cast<unsigned>(rows));
@@ -438,6 +604,43 @@ int mask_uplink_launch(const float* eff, const uint8_t* mask, const float* ef,
     mask_kernel<1><<<grid, kUpThreads, 0, s>>>(eff, mask, ef, alive, sent,
                                                 ef_out, n, tile);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B10. w and incl are (rows,); recv and old may be null (every row
+// receives). The shared slice takes 4 rows (kTrimCols + 3) bytes; above
+// 48 KB the launcher opts in to the larger carve-out (227 KB at most).
+int trimmed_merge_launch(const float* z, const float* w, const float* incl,
+                         const float* recv, const float* old, float* out,
+                         int rows, int n, float trim, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(rows) * (kTrimCols + 3) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        trimmed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((n + kTrimCols - 1) / kTrimCols);
+  trimmed_kernel<<<blocks, kTrimCols, smem, s>>>(z, w, incl, recv, old, out,
+                                                 rows, n, trim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B11. kind: 0 momentum, 1 Nesterov, 2 Adam. m1, m1_out and bias (the two
+// bias factors, device memory) are read or written for Adam only; beta1 is
+// the momentum coefficient of the other two. c1 = f32(1 - beta1), c2 =
+// f32(1 - beta2). part is (ceil(n / tile),).
+int outer_apply_launch(const float* g, const float* z, const float* m0,
+                       const float* m1, const float* bias, float* z_out,
+                       float* m0_out, float* m1_out, float* part, int n,
+                       int tile, int kind, float lr, float beta1, float beta2,
+                       float eps, float c1, float c2, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + tile - 1) / tile);
+  outer_kernel<<<blocks, kOuterThreads, 0, s>>>(
+      g, z, m0, m1, bias, z_out, m0_out, m1_out, part, n, tile, kind, lr,
+      beta1, beta2, eps, c1, c2);
   return static_cast<int>(cudaGetLastError());
 }
 

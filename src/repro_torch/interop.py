@@ -74,3 +74,23 @@ def state_from_numpy(fields, *, device="cuda") -> AdaSEGState:
         grad_sq_sum=t(fields["grad_sq_sum"], np.float32),
         worker_id=t(fields["worker_id"], np.int32),
     )
+
+
+def srv_from_numpy(z, moments, t, *, device="cuda") -> tuple:
+    """A JAX engine's outer-optimizer state (its ``_srv``: the server
+    anchor's leaves, the moment trees as sequences of leaves, the int32
+    round count) as the port's ``(z, moments, t)``.
+
+    >>> z, mom, t = srv_from_numpy([np.zeros((1, 3))], [[np.ones((1, 3))]],
+    ...                            np.int32(2), device="cpu")
+    >>> tuple(z[0].shape), float(mom[0][0].sum()), t.dtype, int(t)
+    ((1, 3), 3.0, torch.int32, 2)
+    """
+    dev = resolve_device(device)
+
+    def leaves(vs):
+        return tuple(torch.as_tensor(np.array(v, dtype=np.float32),
+                                     device=dev) for v in vs)
+
+    return (leaves(z), tuple(leaves(m) for m in moments),
+            torch.as_tensor(np.array(t, dtype=np.int32), device=dev))

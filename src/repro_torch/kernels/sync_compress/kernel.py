@@ -8,7 +8,11 @@ codec uplink passes.
   ``eff = w·z + ef`` with in-kernel threefry uniforms, and the residual;
 * :func:`eff_uplink`      — top-k pass 1: ``eff = w·z + ef``;
 * :func:`mask_uplink`     — top-k pass 2: apply the keep mask, write the
-  complementary residual.
+  complementary residual;
+* :func:`trimmed_merge_stacked` — the robust merge: per-coordinate trimmed
+  weighted mean by stable rank, broadcast, recv/old gating;
+* :func:`outer_apply`     — the server's outer-optimizer step on the
+  ``(1, n)`` server leaf.
 
 Each takes one worker-stacked flat leaf ``(M, n)`` with per-worker
 ``(M,)`` scalars. A CPU tensor goes to the plain version in :mod:`.ref`; a
@@ -21,10 +25,14 @@ import torch
 from .. import _build
 from .._build import F, I, P
 from .ref import (
+    adam_bias,
     eff_uplink_ref,
     mask_uplink_ref,
+    f32,
     merge_ref,
+    outer_apply_ref,
     quantize_uplink_ref,
+    trimmed_merge_ref,
     uplink_stats_ref,
 )
 
@@ -39,11 +47,22 @@ EFF = _build.Kernel("eff_uplink", _SRC, "eff_uplink_launch",
                     [P, P, P, P, I, I, I, I, P])
 MASK = _build.Kernel("mask_uplink", _SRC, "mask_uplink_launch",
                      [P, P, P, P, P, P, I, I, I, I, P])
+TRIMMED = _build.Kernel("trimmed_merge_stacked", _SRC, "trimmed_merge_launch",
+                        [P, P, P, P, P, P, I, I, F, P])
+OUTER = _build.Kernel("outer_apply", _SRC, "outer_apply_launch",
+                      [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F,
+                       P])
 
 #: the merge kernel keeps the M weights in (default-sized) shared memory
 MAX_ROWS = 12 * 1024
 #: columns of one worker's row per block of the uplink kernels
 TILE = 2048
+#: the robust merge stages an (M, 64) slice and three (M,) vectors in
+#: shared memory: at most 227 KB, so M <= 867
+TRIMMED_MAX_ROWS = 232448 // (4 * (64 + 3))
+#: columns of the server leaf per block of the outer step
+OUTER_TILE = 1024
+_OUTER_KINDS = {"momentum": 0, "nesterov": 1, "adam": 2}
 
 
 def _ptr(t):
@@ -153,3 +172,74 @@ def mask_uplink(eff, mask, ef=None, alive=None):
     MASK(eff.data_ptr(), mask.data_ptr(), _ptr(ef), _ptr(af), sent.data_ptr(),
          _ptr(ef_new), rows, n, TILE, vec, _build.stream_of(eff))
     return sent, ef_new
+
+
+def trimmed_merge_stacked(z, w, incl, recv=None, old=None, *, trim: int):
+    """Robust merge on a stacked ``(M, n)`` leaf: the per-coordinate
+    ``trim``-per-side trimmed weighted mean over the included rows
+    (``incl`` 0/1, ``(M,)``), renormalised over the survivors' weight and
+    broadcast to every row; rows whose ``recv`` is falsy keep ``old``
+    (default ``z``). ``trim = ⌊(M−1)/2⌋`` is the coordinate median."""
+    if _build.on_cpu(z):
+        return trimmed_merge_ref(z, w, incl, trim=trim,
+                                 recv=None if recv is None else recv > 0,
+                                 old=old)
+    if recv is None:
+        old = None
+    elif old is None:
+        old = z
+    rows, n, _ = _build.layout("trimmed_merge_stacked", z, old,
+                               max_rows=TRIMMED_MAX_ROWS)
+    wf = _build.per_worker_f32("trimmed_merge_stacked", w, rows, z)
+    inf = _build.per_worker_f32("trimmed_merge_stacked", incl, rows, z)
+    rf = _build.per_worker_f32("trimmed_merge_stacked", recv, rows, z)
+    out = torch.empty_like(z)
+    TRIMMED(z.data_ptr(), wf.data_ptr(), inf.data_ptr(), _ptr(rf), _ptr(old),
+            out.data_ptr(), rows, n, float(trim), _build.stream_of(z))
+    return out
+
+
+def outer_scalars(spec):
+    """The outer-step kernel's scalar arguments for a ``ps.server_opt``
+    spec: the policy's kind, lr, β₁ (momentum's β), β₂, ε, and the float32
+    ``1 − β₁`` and ``1 − β₂`` the update multiplies by."""
+    kind = spec[0]
+    if kind not in _OUTER_KINDS:
+        raise ValueError(f"unknown server-opt spec {spec!r}")
+    lr, b1, b2, eps = (spec[1:] if kind == "adam" else
+                       (spec[1], spec[2], 0.0, 0.0))
+    return (_OUTER_KINDS[kind], f32(lr), f32(b1), f32(b2), f32(eps),
+            f32(1.0 - b1), f32(1.0 - b2))
+
+
+def outer_apply(merged, z, mom, t, *, spec):
+    """The server's outer step on one server leaf (``(1, n)``, or any
+    contiguous shape): ``Δ = merged − z``, one moment update and step of
+    the ``ps.server_opt`` policy ``spec``. ``mom`` holds the moment leaves
+    (1 for momentum/nesterov, 2 for adam), ``t`` the f32 round count before
+    this step (a tensor on ``z``'s device). Returns ``(z_new, mom_new,
+    delta_sq)`` with ``delta_sq = Σ Δ²`` (0-d)."""
+    if _build.on_cpu(z):
+        return outer_apply_ref(merged, z, mom, t, spec=spec)
+    scalars = outer_scalars(spec)
+    slots = 2 if spec[0] == "adam" else 1
+    if len(mom) != slots:
+        raise ValueError(f"outer_apply: {spec[0]} takes {slots} moment "
+                         f"leaves, got {len(mom)}")
+    _build.check_cuda_f32("outer_apply", merged, z, *mom)
+    if any(v.shape != z.shape for v in (merged, *mom)):
+        raise ValueError("outer_apply: merged, z and the moments must share "
+                         f"the shape {tuple(z.shape)}")
+    n = z.numel()
+    if n == 0:
+        raise ValueError("outer_apply: empty leaf")
+    bias = adam_bias(spec[2], spec[3], t) if slots == 2 else None
+    z_new = torch.empty_like(z)
+    mom_new = tuple(torch.empty_like(v) for v in mom)
+    part = torch.empty((n + OUTER_TILE - 1) // OUTER_TILE,
+                       dtype=torch.float32, device=z.device)
+    m1, m1_out = (mom[1], mom_new[1]) if slots == 2 else (None, None)
+    OUTER(merged.data_ptr(), z.data_ptr(), mom[0].data_ptr(), _ptr(m1),
+          _ptr(bias), z_new.data_ptr(), mom_new[0].data_ptr(), _ptr(m1_out),
+          part.data_ptr(), n, OUTER_TILE, *scalars, _build.stream_of(z))
+    return z_new, mom_new, torch.sum(part)

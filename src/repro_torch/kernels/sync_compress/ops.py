@@ -3,10 +3,12 @@
 
 The engine calls these under ``codec_backend="fused"``:
 :func:`codec_uplink_stacked` runs the whole Line-5 uplink (weight, error
-feedback, codec, residual) in fused passes per leaf and
-:func:`sync_merge_stacked` the server side (``core.adaseg.
-sync_weighted_stacked(backend="fused")`` calls it with ``normalize=True``).
-Robust merges come in a later slice.
+feedback, codec, residual) in fused passes per leaf,
+:func:`sync_merge_stacked` the server side, plain or robust (``core.adaseg.
+sync_weighted_stacked(backend="fused")`` calls it with ``normalize=True``),
+and :func:`server_outer_apply` the server's outer-optimizer step. Under a
+robust pipeline the engine calls the uplink and the merge with
+``use_kernel=False`` for its reference backend, as the JAX package does.
 
 Codecs are static specs, as ``ps.compress`` compressors export them:
 
@@ -47,7 +49,9 @@ from .kernel import (
     eff_uplink,
     mask_uplink,
     merge_stacked,
+    outer_apply,
     quantize_uplink,
+    trimmed_merge_stacked,
     uplink_stats,
 )
 
@@ -158,19 +162,142 @@ def codec_uplink(payload, rng, w=None, ef=None, alive=None, *, codec,
     return sent, ef_new
 
 
+def _krum_select(z2s, w, *, f, m_sel):
+    """(Multi-)Krum selection on flat ``(M, n)`` leaves: score each
+    included worker by the sum of its ``max(1, M − f − 2)`` smallest squared
+    distances to the *other* included workers, keep the ``m_sel``
+    lowest-scoring (ties to the lowest worker index, ``lax.top_k``'s order,
+    through a stable sort) and return the ``(M,)`` 0/1 selection. Zero-weight
+    lanes never enter the distance pool and are never selected. The
+    distances are ``‖z_i‖² + ‖z_j‖² − 2·z_i·z_j`` with the Gram matrix as
+    one f32 product (on the card TF32 must be off, as ``chip_smoke.py``
+    sets it)."""
+    m = z2s[0].shape[0]
+    dev = z2s[0].device
+    zc = torch.cat([zz.float() for zz in z2s], dim=1)
+    sq = torch.sum(zc * zc, dim=1)
+    d = sq[:, None] + sq[None, :] - 2.0 * (zc @ zc.T)
+    incl = (torch.ones(m, device=dev) if w is None
+            else torch.as_tensor(w, dtype=torch.float32, device=dev)) > 0
+    eye = torch.eye(m, dtype=torch.bool, device=dev)
+    pair = incl[None, :] & incl[:, None] & ~eye
+    d = torch.where(pair, d, math.inf)
+    nb = max(1, m - f - 2)
+    score = torch.sum(torch.sort(d, dim=1)[0][:, :nb], dim=1)
+    score = torch.where(incl, score, math.inf)
+    idx = torch.sort(score, stable=True)[1][:min(m_sel, m)]
+    sel = torch.zeros(m, dtype=torch.float32, device=dev)
+    sel[idx] = 1.0
+    return sel * incl.float()
+
+
 def sync_merge_stacked(z, w=None, recv=None, old=None, *, normalize=False,
-                       agg=None):
+                       agg=None, use_kernel=True):
     """Weighted sum over the worker axis of every leaf of ``z`` (a tuple of
     ``(M, ...)`` leaves), broadcast back to every worker. ``recv`` (M,)
     gates delivery: non-receiving workers keep their ``old`` row (default:
-    ``z``)."""
-    if agg is not None:
-        raise NotImplementedError(
-            "robust merges (agg=...) are ported in a later slice")
+    ``z``). ``use_kernel=False`` runs the plain versions directly.
+
+    ``agg`` selects a robust merge instead of the weighted mean (the static
+    specs of ``ps.robust`` aggregators; None is the historical mean):
+
+    * ``("trimmed", b)``     — the per-coordinate ``b``-per-side trimmed
+      weighted mean over the positive-weight lanes (the robust merge
+      kernel; ``b = ⌊(M−1)/2⌋`` is the coordinate median);
+    * ``("krum", f, m_sel)`` — multi-Krum: keep the ``m_sel`` workers with
+      the smallest sum of ``max(1, M−f−2)`` nearest squared distances, then
+      the survivors' renormalised weighted mean (the merge kernel).
+
+    >>> z = (torch.tensor([[1.0], [9.0], [2.0], [3.0]]),)
+    >>> out = sync_merge_stacked(z, torch.ones(4), agg=("trimmed", 1))
+    >>> out[0][:, 0].tolist()
+    [2.5, 2.5, 2.5, 2.5]
+    """
     old_leaves = old if old is not None else (None,) * len(z)
+    m = z[0].shape[0]
+    dev = z[0].device
+    if w is not None:
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    if recv is not None:
+        recv = torch.as_tensor(recv, dtype=torch.float32, device=dev)
+
+    if agg is not None and agg[0] == "krum":
+        sel = _krum_select([_flat2(zl) for zl in z], w, f=int(agg[1]),
+                           m_sel=int(agg[2]))
+        w = sel if w is None else w * sel
+        agg, normalize = None, True     # mean over the Krum survivors
+
     outs = []
+    if agg is not None:                 # ("trimmed", b)
+        trim = int(agg[1])
+        wt = torch.ones(m, dtype=torch.float32, device=dev) if w is None else w
+        incl = (wt > 0).float()
+        for zl, ol in zip(z, old_leaves):
+            o2 = None if ol is None else _flat2(ol)
+            if use_kernel:
+                out2 = trimmed_merge_stacked(_flat2(zl), wt, incl, recv, o2,
+                                             trim=trim)
+            else:
+                out2 = _ref.trimmed_merge_ref(
+                    _flat2(zl), wt, incl, trim=trim,
+                    recv=None if recv is None else recv > 0, old=o2)
+            outs.append(out2.reshape(zl.shape))
+        return tuple(outs)
+
     for zl, ol in zip(z, old_leaves):
         o2 = None if ol is None else _flat2(ol)
-        out2 = merge_stacked(_flat2(zl), w, recv, o2, normalize=normalize)
+        if use_kernel:
+            out2 = merge_stacked(_flat2(zl), w, recv, o2, normalize=normalize)
+        else:
+            out2 = _ref.merge_ref(_flat2(zl), w, normalize=normalize,
+                                  recv=None if recv is None else recv > 0,
+                                  old=o2)
         outs.append(out2.reshape(zl.shape))
     return tuple(outs)
+
+
+def server_outer_apply(merged, z, mom, t, *, spec, use_kernel=True):
+    """The server's outer-optimizer step on tuples of leaves: per leaf,
+    ``Δ = merged − z`` and one moment update and step of the ``ps.
+    server_opt`` policy ``spec`` (the outer-step kernel, or its plain
+    version with ``use_kernel=False``).
+
+    ``merged``/``z`` are server-space leaves (leading axis 1), ``mom`` a
+    tuple of z-shaped moment tuples (1 for momentum/nesterov, 2 for adam),
+    ``t`` the int32 count of outer steps taken so far. Returns ``(z_new,
+    mom_new, t_new, eff_lr, delta_norm)``: ``eff_lr`` the policy's step
+    size this round (Adam's with the bias correction folded in) and
+    ``delta_norm = ‖Δ‖₂`` over all leaves.
+
+    Nesterov's first step moves by lr·(1+β)·Δ off a zero moment:
+
+    >>> z, merged = (torch.zeros(1, 3),), (torch.tensor([[1.0, -2.0, 0.5]]),)
+    >>> zn, mn, tn, lr, dn = server_outer_apply(
+    ...     merged, z, ((torch.zeros(1, 3),),), torch.tensor(0),
+    ...     spec=("nesterov", 0.5, 0.8))
+    >>> bool(torch.allclose(zn[0], 0.5 * 1.8 * merged[0], rtol=1e-6))
+    True
+    >>> int(tn), float(lr), round(float(dn), 4)
+    (1, 0.5, 2.2913)
+    """
+    t_f = t.float()
+    z_new, mom_new = [], [[] for _ in mom]
+    dsq = torch.zeros((), dtype=torch.float32, device=t.device)
+    apply = outer_apply if use_kernel else _ref.outer_apply_ref
+    for i, (g, zl) in enumerate(zip(merged, z)):
+        m2 = tuple(_flat2(ml[i]) for ml in mom)
+        zn2, mn2, ds = apply(_flat2(g), _flat2(zl), m2, t_f, spec=spec)
+        z_new.append(zn2.reshape(zl.shape))
+        for s, mn in enumerate(mn2):
+            mom_new[s].append(mn.reshape(zl.shape))
+        dsq = dsq + ds
+    t_new = t.to(torch.int32) + 1
+    if spec[0] == "adam":
+        _, lr, b1, b2, _ = spec
+        bias = _ref.adam_bias(b1, b2, t_f)
+        eff_lr = _ref.f32(lr) * _ref.sqrt_f32(bias[1]) / bias[0]
+    else:
+        eff_lr = torch.full((), _ref.f32(spec[1]), dtype=torch.float32,
+                            device=t.device)
+    return (tuple(z_new), tuple(tuple(v) for v in mom_new), t_new, eff_lr,
+            _ref.sqrt_f32(dsq))

@@ -1,7 +1,8 @@
 """Parameter-Server runtime, serial path: Algorithm 1 with the built-in
 codecs (identity, stochastic quantization and top-k, with error feedback),
-schedules and fault policies. The rest of the JAX package's runtime is
-ported in later slices."""
+schedules and fault policies, hostile fleets (Byzantine attacks, DP
+uplinks, robust merges), the server-side outer optimizer, and checkpoints.
+The rest of the JAX package's runtime is ported in later slices."""
 from ..core.adaseg import AdaSEGConfig
 from ..core.worker import AdaSEGWorker, LocalWorker
 from .compress import (
@@ -12,8 +13,28 @@ from .compress import (
     check_codec_backend,
     dense_bytes,
 )
-from .engine import PSConfig, PSEngine, make_serial_chunk, make_sync_stacked
+from .engine import (
+    PSConfig,
+    PSEngine,
+    RobustPipeline,
+    make_serial_chunk,
+    make_sync_stacked,
+    resolve_robust,
+)
 from .faults import BernoulliFaults, FaultPolicy, NoFaults, OutageFaults
+from .robust import (
+    ByzantinePolicy,
+    CollusionAttack,
+    CoordinateMedian,
+    DPUplink,
+    MultiKrum,
+    RobustAggregator,
+    ScaledNoiseAttack,
+    SignFlipAttack,
+    TrimmedMean,
+    WeightedMean,
+    ZeroAttack,
+)
 from .schedule import (
     ElasticSchedule,
     FixedSchedule,
@@ -21,31 +42,58 @@ from .schedule import (
     UniformSchedule,
     WorkerSchedule,
 )
+from .server_opt import (
+    NoServerOpt,
+    ServerAdam,
+    ServerMomentum,
+    ServerNesterov,
+    ServerOptimizer,
+    resolve_server_opt,
+)
 from .trace import RoundRecord, TraceRecorder
 
 __all__ = [
     "AdaSEGConfig",
     "AdaSEGWorker",
     "BernoulliFaults",
+    "ByzantinePolicy",
+    "CollusionAttack",
+    "CoordinateMedian",
+    "DPUplink",
     "ElasticSchedule",
     "FaultPolicy",
     "FixedSchedule",
     "IdentityCompressor",
     "LocalWorker",
+    "MultiKrum",
     "NoFaults",
+    "NoServerOpt",
     "OutageFaults",
     "PSConfig",
     "PSEngine",
+    "RobustAggregator",
+    "RobustPipeline",
     "RoundRecord",
+    "ScaledNoiseAttack",
+    "ServerAdam",
+    "ServerMomentum",
+    "ServerNesterov",
+    "ServerOptimizer",
+    "SignFlipAttack",
     "StochasticQuantizeCompressor",
     "StragglerSchedule",
     "SyncCompressor",
     "TopKCompressor",
     "TraceRecorder",
+    "TrimmedMean",
     "UniformSchedule",
+    "WeightedMean",
     "WorkerSchedule",
+    "ZeroAttack",
     "check_codec_backend",
     "dense_bytes",
     "make_serial_chunk",
     "make_sync_stacked",
+    "resolve_robust",
+    "resolve_server_opt",
 ]

@@ -8,20 +8,29 @@ gives the per-round local step counts K_m^r, and a
 
 The serial path runs Algorithm 1 with any built-in compressor (identity,
 stochastic quantization or top-k, with error feedback), fault policy and
-schedule. Each round is the Line 5–8 sync followed by K_m^r masked local
-steps of the whole stacked fleet. The sync is reference tree math, or
-under ``codec_backend="fused"`` the fused uplink kernels
-(``codec_uplink_stacked``) and the merge kernel. Dead workers run no
-steps, send nothing (their error-feedback residual stays frozen), and
-keep their stale anchor; the Line-7 weights are renormalised over the
-survivors. Client sampling, hostile fleets, the server optimizer, the
-sharded path and checkpoints raise ``NotImplementedError`` until their
-slice.
+schedule, a hostile fleet (Byzantine attacks, DP uplinks, robust merges:
+``ps.robust``) and a server-side outer optimizer (``ps.server_opt``). Each
+round is the Line 5–8 sync followed by K_m^r masked local steps of the
+whole stacked fleet. The sync is reference tree math, or under
+``codec_backend="fused"`` the fused uplink kernels
+(``codec_uplink_stacked``), the merge kernels (plain and robust) and the
+outer-step kernel. Dead workers run no steps, send nothing (their
+error-feedback residual stays frozen), and keep their stale anchor; the
+Line-7 weights are renormalised over the survivors. Client sampling and
+the sharded path raise ``NotImplementedError`` until their slice.
 
 With the same seed the engine draws the same keys as the JAX package
 (``derive_rngs`` → ``split(rng0, R)`` per round → ``split(rng_round, K·M)``
-per step, and ``split(fold_in(rng_round, 7), M)`` for the codec), so its
+per step, ``split(fold_in(rng_round, 7), M)`` for the codec, and those
+keys folded with 13 and 11 for the attacks and the DP noise), so its
 trajectories can be held against the JAX engine's.
+
+Checkpoints (:meth:`PSEngine.save`, :meth:`PSEngine.restore`) carry the
+fleet state, the error-feedback residuals, the round counter, the seed
+and the fingerprints, plus the outer optimizer's state when one is active,
+in the JAX package's layout (``repro_torch.checkpoint``); schedules, fault
+and attack tables are re-derived from the config, so a resumed run is
+bit-identical to an uninterrupted one.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 
 from .. import random as jr
 from .._device import resolve_device
+from ..checkpoint.serialize import load_pytree, save_pytree
 from ..core.adaseg import AdaSEGConfig, weighted_worker_average
 from ..core.tree import per_worker, tree_map, tree_zeros_like
 from ..core.types import MinimaxProblem
@@ -46,7 +56,9 @@ from .compress import (
     dense_bytes,
 )
 from .faults import FaultPolicy, NoFaults
+from .robust import ByzantinePolicy, DPUplink, RobustAggregator, WeightedMean
 from .schedule import UniformSchedule, WorkerSchedule
+from .server_opt import NoServerOpt, ServerOptimizer, resolve_server_opt
 from .trace import RoundRecord, TraceRecorder
 
 PyTree = Any
@@ -61,8 +73,13 @@ class PSConfig:
     :class:`LocalWorker`, which then needs ``local_k=`` or ``schedule=``).
     ``codec_backend`` picks the sync's implementation: ``"reference"``
     (plain PyTorch) or ``"fused"`` (the CUDA kernels; their plain versions
-    for CPU tensors). The fields after it exist for the later slices and
-    must stay None here.
+    for CPU tensors). ``byzantine``, ``aggregator`` and ``dp`` are the
+    hostile-fleet layers (:mod:`repro_torch.ps.robust`): any of them
+    switches the uplink to the unweighted wire format with the Line-7
+    weights applied server-side, and all None (or a zero-budget aggregator)
+    runs the historical path. ``server_opt`` is the outer optimizer over
+    round deltas (None or ``NoServerOpt`` is the historical Line-7
+    broadcast). ``sampler`` is ported in a later slice and must stay None.
 
     Examples
     --------
@@ -83,13 +100,39 @@ class PSConfig:
     backend: str = "reference"               # AdaSEG step backend
     codec_backend: str = "reference"         # sync merge: reference | fused
     sampler: Any = None
-    byzantine: Any = None
-    aggregator: Any = None
-    dp: Any = None
-    server_opt: Any = None
+    byzantine: ByzantinePolicy | None = None  # adversarial uplinks
+    aggregator: RobustAggregator | None = None  # robust server merge
+    dp: DPUplink | None = None               # l2 clip + Gaussian noise
+    server_opt: ServerOptimizer | None = None  # outer optimizer over Δ
 
 
-_LATER = ("sampler", "byzantine", "aggregator", "dp", "server_opt")
+@dataclasses.dataclass(frozen=True)
+class RobustPipeline:
+    """The resolved hostile-fleet configuration: the attack policy, the
+    static merge spec at the fleet width, and the DP transform. None
+    anywhere means that layer is off; the engine builds a pipeline only
+    when at least one layer is active."""
+
+    byzantine: ByzantinePolicy | None
+    agg: tuple | None
+    dp: DPUplink | None
+
+
+def resolve_robust(config: PSConfig, lanes: int) -> RobustPipeline | None:
+    """Resolve a config's hostile-fleet fields at fleet width ``lanes``.
+    Returns None (the exact historical path) when there is no attack, no
+    DP, and the aggregator degrades (``spec(lanes) is None``).
+
+    >>> from repro_torch.ps.robust import TrimmedMean
+    >>> cfg = PSConfig(num_workers=4, rounds=1, aggregator=TrimmedMean(0.2))
+    >>> resolve_robust(cfg, 4) is None, resolve_robust(cfg, 10).agg
+    (True, ('trimmed', 2))
+    """
+    agg = config.aggregator or WeightedMean()
+    spec = agg.spec(lanes)
+    if config.byzantine is None and spec is None and config.dp is None:
+        return None
+    return RobustPipeline(config.byzantine, spec, config.dp)
 
 
 def _resolve_worker(config: PSConfig) -> LocalWorker:
@@ -123,10 +166,9 @@ def _resolve_schedule(config: PSConfig) -> WorkerSchedule:
 
 def _check_slice(config: PSConfig, compressor) -> None:
     """Refuse the features this slice has not ported yet."""
-    for name in _LATER:
-        if getattr(config, name) is not None:
-            raise NotImplementedError(
-                f"PSConfig.{name} is ported in a later slice")
+    if config.sampler is not None:
+        raise NotImplementedError(
+            "PSConfig.sampler is ported in a later slice")
     check_codec_backend(config.codec_backend, compressor)
 
 
@@ -141,8 +183,27 @@ def _line7_weights(sw, alive_r):
     return w_raw / torch.where(any_alive, denom, 1.0), alive_r & any_alive
 
 
+def _initial_anchor(worker: LocalWorker, state, codec_backend: str):
+    """The server anchor's start: the fleet mean of the initial payloads,
+    formed by the clean sync's own merge with the initial Line-7 weights
+    (equal across an AdaSEG fleet, whose η all start at the same value).
+    A clean fleet's first pseudo-gradient is then exactly 0 on either
+    backend, where a mean formed another way leaves rounding noise that
+    Adam's normalised step turns into moves of ±lr (ROADMAP C6)."""
+    w, _ = _line7_weights(worker.sync_weight(state), None)
+    payload = worker.sync_payload(state)
+    if codec_backend == "fused":
+        from ..kernels.sync_compress.ops import sync_merge_stacked
+
+        return tuple(v[:1].clone() for v in sync_merge_stacked(payload, w))
+    return tuple(torch.sum(per_worker(w, v).to(v.dtype) * v, dim=0,
+                           keepdim=True) for v in payload)
+
+
 def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
-                      num_workers: int, codec_backend: str = "reference"):
+                      num_workers: int, codec_backend: str = "reference",
+                      robust: RobustPipeline | None = None,
+                      server: ServerOptimizer | None = None):
     """Line 5–8 on the stacked worker axis: compress(w·payload) per worker
     (plus the error-feedback residual), server sum, broadcast to the
     survivors. Returns ``sync(state, ef, alive_r, c_rng) -> (state,
@@ -154,10 +215,88 @@ def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
     ``codec_backend="fused"`` normalises ``w`` here and runs the uplink
     kernels (``codec_uplink_stacked``) and the merge kernel; with the
     identity codec the merge kernel alone applies ``w``: one read and one
-    write of the fleet payload per leaf."""
+    write of the fleet payload per leaf.
+
+    ``robust`` (a resolved :class:`RobustPipeline`) swaps in the hostile
+    round, ``sync(state, ef, alive_r, c_rng, byz_r)`` with ``byz_r`` the
+    (M,) attacked-lane mask: the uplink is *unweighted*, the attack and
+    the DP transform act on the raw payload (keys ``fold_in(key, 13)`` and
+    ``fold_in(key, 11)`` of each worker's codec key), the codec compresses
+    that, and the Line-7 weights and the robust aggregation are applied
+    server-side by ``sync_merge_stacked(agg=..., normalize=True)``.
+
+    ``server`` (a resolved outer optimizer, never ``NoServerOpt``) inserts
+    the outer step between the merge and delivery: the merge runs ungated,
+    its row 0 is the pseudo-gradient's end point against the server anchor,
+    and the survivors receive the *post-step* anchor. The closures then
+    take a trailing ``srv = (z, moments, t)`` and return ``(state, ef_new,
+    srv_new, telem)`` with ``telem = [eff_lr, ‖Δ‖]``."""
     comp = compressor
     m = num_workers
     has_ef = comp.error_feedback
+    use_kernel = codec_backend == "fused"
+
+    if server is not None:
+        from ..kernels.sync_compress.ops import server_outer_apply
+
+        def finish(state, ef, merged, recv, payload, srv):
+            """Row 0 of the ungated merge → outer step → gated delivery;
+            returns ``(state, ef, srv_new, telem)``."""
+            z, mom, t = srv
+            z_new, mom_new, t_new, eff_lr, dn = server_outer_apply(
+                tuple(v[:1] for v in merged), z, mom, t, spec=server.spec,
+                use_kernel=use_kernel)
+            if recv is None:
+                synced = tuple(v.expand(old.shape).contiguous()
+                               for v, old in zip(z_new, payload))
+            else:
+                synced = tuple(torch.where(per_worker(recv, old), v, old)
+                               for v, old in zip(z_new, payload))
+            return (worker.merge_synced(state, synced), ef,
+                    (z_new, mom_new, t_new), torch.stack([eff_lr, dn]))
+
+    if robust is not None:
+        from ..kernels.sync_compress.ops import (
+            codec_uplink_stacked,
+            sync_merge_stacked,
+        )
+
+        def sync_stacked_robust(state, ef, alive_r, c_rng, byz_r, srv=None):
+            sw = worker.sync_weight(state)                    # (M,)
+            if alive_r is None:
+                w_raw, recv = sw, None
+            else:
+                w_raw = torch.where(alive_r, sw, 0.0)
+                recv = alive_r & (torch.sum(w_raw) > 0.0)
+            payload = worker.sync_payload(state)
+            c_rngs = jr.split(c_rng, m)
+            uplink = payload
+            if robust.byzantine is not None:
+                uplink = robust.byzantine.apply(uplink, byz_r,
+                                                jr.fold_in(c_rngs, 13))
+            if robust.dp is not None:
+                uplink = robust.dp.apply(uplink, jr.fold_in(c_rngs, 11))
+            if comp.is_identity:
+                sent, ef_new = uplink, ef
+            else:
+                sent, ef_new = codec_uplink_stacked(
+                    uplink, c_rngs, w=None, ef=ef if has_ef else None,
+                    alive=alive_r, codec=comp.codec_spec,
+                    use_kernel=use_kernel)
+                if not has_ef:
+                    ef_new = ef
+            if server is not None:
+                # ungated robust merge → outer step → gated delivery
+                merged = sync_merge_stacked(sent, w_raw, normalize=True,
+                                            agg=robust.agg,
+                                            use_kernel=use_kernel)
+                return finish(state, ef_new, merged, recv, payload, srv)
+            synced = sync_merge_stacked(
+                sent, w_raw, recv, None if recv is None else payload,
+                normalize=True, agg=robust.agg, use_kernel=use_kernel)
+            return worker.merge_synced(state, synced), ef_new
+
+        return sync_stacked_robust
 
     if codec_backend == "fused":
         from ..kernels.sync_compress.ops import (
@@ -165,11 +304,14 @@ def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
             sync_merge_stacked,
         )
 
-        def sync_stacked_fused(state, ef, alive_r, c_rng):
+        def sync_stacked_fused(state, ef, alive_r, c_rng, srv=None):
             w, recv = _line7_weights(worker.sync_weight(state), alive_r)
             payload = worker.sync_payload(state)
             old = None if recv is None else payload
             if comp.is_identity:
+                if server is not None:
+                    merged = sync_merge_stacked(payload, w)
+                    return finish(state, ef, merged, recv, payload, srv)
                 synced = sync_merge_stacked(payload, w, recv, old)
                 return worker.merge_synced(state, synced), ef
             sent, ef_new = codec_uplink_stacked(
@@ -177,13 +319,17 @@ def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
                 ef=ef if has_ef else None, alive=alive_r,
                 codec=comp.codec_spec,
             )
+            if not has_ef:
+                ef_new = ef
+            if server is not None:
+                return finish(state, ef_new, sync_merge_stacked(sent), recv,
+                              payload, srv)
             synced = sync_merge_stacked(sent, None, recv, old)
-            return worker.merge_synced(state, synced), (
-                ef_new if has_ef else ef)
+            return worker.merge_synced(state, synced), ef_new
 
         return sync_stacked_fused
 
-    def sync_stacked(state, ef, alive_r, c_rng):
+    def sync_stacked(state, ef, alive_r, c_rng, srv=None):
         w, recv = _line7_weights(worker.sync_weight(state), alive_r)
         payload = worker.sync_payload(state)
         if comp.is_identity:
@@ -207,6 +353,10 @@ def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
                     lambda e, s, e_old: torch.where(
                         per_worker(alive_r, e), e - s, e_old),
                     eff, sent, ef) if has_ef else ef
+        if server is not None:
+            merged = tree_map(lambda s: torch.sum(s, dim=0, keepdim=True),
+                              sent)
+            return finish(state, ef_new, merged, recv, payload, srv)
         if recv is None:
             synced = tree_map(
                 lambda s: torch.sum(s, dim=0, keepdim=True).expand(s.shape)
@@ -235,28 +385,46 @@ def make_serial_chunk(
     no_faults: bool,
     codec_backend: str = "reference",
     device="cuda",
+    robust: RobustPipeline | None = None,
+    server: ServerOptimizer | None = None,
 ):
     """Build the serial-path round chunk: for each round, sync then K_m^r
     masked local steps (a Python loop where the JAX package scans).
 
-    The chunk is ``chunk(state, ef, round_rngs, steps, alive, counts_cum)
-    -> (state, ef, eta_stats, ress)``: ``ef`` the error-feedback residual
-    tree (``()`` without error feedback), ``round_rngs`` ``(C, 2)``;
-    ``steps`` (the realised K_m^r, 0 for dead workers), ``alive`` and
-    ``counts_cum`` are ``(C, M)`` host tables;
+    The chunk is ``chunk(state, ef, round_rngs, steps, alive, counts_cum,
+    byz=None, srv=None) -> (state, ef, eta_stats, ress, srv, outer)``:
+    ``ef`` the error-feedback residual tree (``()`` without error
+    feedback), ``round_rngs`` ``(C, 2)``; ``steps`` (the realised K_m^r, 0
+    for dead workers), ``alive``, ``counts_cum`` and, under a robust
+    pipeline, ``byz`` (the attacked lanes) are ``(C, M)`` host tables;
+    ``srv`` the outer optimizer's ``(z, moments, t)`` under a ``server``.
     ``eta_stats`` is ``(C, 3)`` per-round ``[min, max, mean]`` of η over
-    the fleet and ``ress`` ``(C,)`` the residual of the running Line-14
-    output (NaN without ``eval_fn``), both left on the device so a chunk
-    transfers O(rounds) values once. ``no_faults`` is the static "no
+    the fleet, ``ress`` ``(C,)`` the residual of the running Line-14 output
+    (NaN without ``eval_fn``) and ``outer`` ``(C, 2)`` the per-round
+    ``[eff_lr, ‖Δ‖]`` (None without a server), all left on the device so a
+    chunk transfers O(rounds) values once. ``no_faults`` is the static "no
     masking" case: ``alive`` is then ignored."""
     m = num_workers
     dev = torch.device(device)
-    sync_stacked = make_sync_stacked(worker, compressor, m, codec_backend)
+    sync_stacked = make_sync_stacked(worker, compressor, m, codec_backend,
+                                     robust, server)
 
-    def round_body(state, ef, rng_round, steps_r, alive_r, counts_r):
+    def round_body(state, ef, srv, rng_round, steps_r, alive_r, byz_r,
+                   counts_r):
         alive_t = None if no_faults else torch.as_tensor(alive_r, device=dev)
-        c_rng = None if compressor.is_identity else jr.fold_in(rng_round, 7)
-        state, ef = sync_stacked(state, ef, alive_t, c_rng)
+        if robust is not None:
+            # the robust uplink keys its attacks and noise off the codec
+            # key, so it is derived whatever the codec
+            args = (state, ef, alive_t, jr.fold_in(rng_round, 7),
+                    torch.as_tensor(byz_r, device=dev))
+        else:
+            args = (state, ef, alive_t, None if compressor.is_identity
+                    else jr.fold_in(rng_round, 7))
+        telem = None
+        if server is not None:
+            state, ef, srv, telem = sync_stacked(*args, srv)
+        else:
+            state, ef = sync_stacked(*args)
         # Line 3–4: K_m^r masked local steps (no mask when all run).
         step_rngs = jr.split(rng_round, k_pad * m).reshape(k_pad, m, 2)
         for i in range(k_pad):
@@ -273,16 +441,20 @@ def make_serial_chunk(
             counts = counts_r if counts_r.sum() > 0 else np.ones_like(counts_r)
             res = eval_fn(weighted_worker_average(
                 worker.output(state), torch.as_tensor(counts, device=dev)))
-        return state, ef, eta_stats, res.to(torch.float32)
+        return state, ef, srv, eta_stats, res.to(torch.float32), telem
 
-    def chunk(state, ef, round_rngs, steps, alive, counts_cum):
-        etas, ress = [], []
+    def chunk(state, ef, round_rngs, steps, alive, counts_cum, byz=None,
+              srv=None):
+        etas, ress, outer = [], [], []
         for c in range(round_rngs.shape[0]):
-            state, ef, eta_stats, res = round_body(
-                state, ef, round_rngs[c], steps[c], alive[c], counts_cum[c])
+            state, ef, srv, eta_stats, res, telem = round_body(
+                state, ef, srv, round_rngs[c], steps[c], alive[c],
+                None if byz is None else byz[c], counts_cum[c])
             etas.append(eta_stats)
             ress.append(res)
-        return state, ef, torch.stack(etas), torch.stack(ress)
+            outer.append(telem)
+        return (state, ef, torch.stack(etas), torch.stack(ress), srv,
+                torch.stack(outer) if server is not None else None)
 
     return chunk
 
@@ -332,12 +504,25 @@ class PSEngine:
         self.compressor = config.compressor or IdentityCompressor()
         self.faults = config.faults or NoFaults()
         _check_slice(config, self.compressor)
+        m, r = config.num_workers, config.rounds
+        # Hostile fleet and outer optimizer, resolved as the JAX engine does:
+        # None for the historical path (zero budget, NoServerOpt).
+        self.aggregator = config.aggregator or WeightedMean()
+        self.byzantine = config.byzantine
+        self.dp = config.dp
+        self._robust = resolve_robust(config, m)
+        self._byz = (np.asarray(self.byzantine.attacked(m, r), dtype=bool)
+                     if self.byzantine is not None
+                     else np.zeros((r, m), dtype=bool))
+        if self._byz.shape != (r, m):
+            raise ValueError("byzantine table shape mismatch")
+        self.server_opt = config.server_opt or NoServerOpt()
+        self._server = resolve_server_opt(config)
         self.codec_backend = config.codec_backend
         # Static: NoFaults lets the round skip aliveness masking entirely.
         self._no_faults = isinstance(self.faults, NoFaults)
         self.eval_fn = eval_fn
 
-        m, r = config.num_workers, config.rounds
         # Deterministic policy tables, re-derived from the config.
         self._ks = np.asarray(self.schedule.steps(m, r), dtype=np.int32)
         self._alive = np.asarray(self.faults.alive(m, r), dtype=bool)
@@ -366,6 +551,16 @@ class PSEngine:
             tree_zeros_like(self.worker.sync_payload(self._state))
             if self.compressor.error_feedback else ())
 
+        # The outer optimizer's (z_server, moments, round count); the anchor
+        # starts at the fleet mean of the initial payloads.
+        if self._server is not None:
+            z0 = _initial_anchor(self.worker, self._state, self.codec_backend)
+            self._srv = (z0, self._server.init_moments(z0),
+                         torch.zeros((), dtype=torch.int32,
+                                     device=self.device))
+        else:
+            self._srv = None
+
         z_like = tuple(v[0] for v in self.worker.sync_payload(self._state))
         self._msg_bytes = self.compressor.message_bytes(z_like)
         self._dense_bytes = dense_bytes(z_like)
@@ -380,10 +575,18 @@ class PSEngine:
             "backend": getattr(self.worker, "backend", None),
             "codec_backend": self.codec_backend,
             "execution": "serial",
+            **({"byzantine": self.byzantine.name}
+               if self.byzantine is not None else {}),
+            **({"aggregator": self.aggregator.name,
+                "dp": None if self.dp is None else self.dp.name}
+               if self._robust is not None else {}),
+            **({"server_opt": self.server_opt.name}
+               if self._server is not None else {}),
         })
         self._chunk_fn = make_serial_chunk(
             problem, self.worker, self.compressor, m, self._k_pad, eval_fn,
-            self._no_faults, self.codec_backend, self.device,
+            self._no_faults, self.codec_backend, self.device, self._robust,
+            self._server,
         )
 
     # ------------------------------------------------------------------
@@ -394,14 +597,17 @@ class PSEngine:
         sl = slice(r0, r1)
         with self.tracer.span(f"chunk [{r0},{r1})", cat="chunk",
                               rounds=r1 - r0) as chunk_sp:
-            state, ef, etas, ress = self._chunk_fn(
+            state, ef, etas, ress, srv, outer = self._chunk_fn(
                 self._state, self._ef, self._round_rngs[sl],
-                self._eff_steps[sl], self._alive[sl], self._counts_cum[sl])
+                self._eff_steps[sl], self._alive[sl], self._counts_cum[sl],
+                byz=self._byz[sl] if self._robust is not None else None,
+                srv=self._srv)
             # The host copies wait for the device, so the span times the
             # chunk's device work too.
             stats = etas.cpu().numpy()                        # (C, 3)
             ress = ress.cpu().numpy()
-        self._state, self._ef = state, ef
+            outer = None if outer is None else outer.cpu().numpy()  # (C, 2)
+        self._state, self._ef, self._srv = state, ef, srv
         self.round = r1
 
         # The chunk's wall-clock, attributed uniformly across its rounds.
@@ -425,6 +631,10 @@ class PSEngine:
                 wall_time_s=per_round_wall,
                 steps_per_sec=eff / per_round_wall if per_round_wall > 0
                 else None,
+                byzantine_workers=(np.nonzero(self._byz[r])[0].tolist()
+                                   if self.byzantine is not None else None),
+                outer_lr=None if outer is None else float(outer[i, 0]),
+                delta_norm=None if outer is None else float(outer[i, 1]),
             )
             self.trace.record(rec)
             if self.tracer.enabled:
@@ -435,15 +645,22 @@ class PSEngine:
                     **vars(rec),
                 )
 
-    def run(self, *, until_round: int | None = None) -> PyTree:
+    def run(self, *, until_round: int | None = None,
+            checkpoint_path: str | None = None,
+            checkpoint_every: int | None = None) -> PyTree:
         """Advance to ``until_round`` (default: all rounds) and return the
-        global output iterate z̄ (Line 14)."""
-        target = self.config.rounds if until_round is None else int(until_round)
-        target = min(target, self.config.rounds)
+        global output iterate z̄ (Line 14). ``checkpoint_every`` chunks the
+        rounds and writes ``checkpoint_path`` at each chunk's end."""
+        target = min(self.config.rounds if until_round is None
+                     else int(until_round), self.config.rounds)
         with self.tracer.span(f"run [{self.round},{target})", cat="run",
                               engine="sync"):
-            if self.round < target:
-                self._run_chunk(self.round, target)
+            while self.round < target:
+                r1 = (min(target, self.round + checkpoint_every)
+                      if checkpoint_every else target)
+                self._run_chunk(self.round, r1)
+                if checkpoint_path is not None:
+                    self.save(checkpoint_path)
         return self.z_bar()
 
     def step_round(self) -> None:
@@ -467,3 +684,78 @@ class PSEngine:
             self.worker.output(self._state),
             torch.as_tensor(counts, device=self.device),
         )
+
+    # ------------------------------------------------------------------
+    # Checkpointing
+    # ------------------------------------------------------------------
+
+    def _ckpt_tree(self) -> dict:
+        """The checkpoint's tree, with the JAX engine's keys, leaf order
+        and dtypes (``round`` int32, ``rng0`` uint32 (2,), fingerprints
+        uint32)."""
+        tree = {
+            "worker_state": self._state,
+            "ef": self._ef,
+            "round": np.int32(self.round),
+            "rng0": self._rng0.cpu().numpy().astype(np.uint32),
+            "worker_fp": np.uint32(self.worker.fingerprint),
+        }
+        if self._robust is not None:
+            # present only for robust runs: the merge semantics (and the
+            # threat model the EF memory accumulated under) must match
+            tree["aggregator_fp"] = np.uint32(self.aggregator.fingerprint)
+        if self._server is not None:
+            # present only under an active outer optimizer, so the
+            # historical (``none``) layout stays byte-identical
+            z, mom, t = self._srv
+            tree["server_opt"] = {"z": z, "mom": mom, "t": t}
+            tree["server_opt_fp"] = np.uint32(self.server_opt.fingerprint)
+        return tree
+
+    def save(self, path: str) -> None:
+        """Write the engine state to ``path`` (the JAX package's layout)."""
+        with self.tracer.span(f"checkpoint r{self.round}", cat="checkpoint",
+                              round=self.round) as sp:
+            sp.attrs["bytes"] = save_pytree(path, self._ckpt_tree())
+
+    def restore(self, path: str) -> "PSEngine":
+        """Resume mid-run: policies and key streams are re-derived from the
+        config, so only the fleet state, the error-feedback residuals, the
+        outer optimizer's state and the round counter come from disk.
+        Refuses a checkpoint from another seed, optimizer, robust aggregator
+        or outer optimizer. The trace keeps the rounds before the restored
+        one."""
+        try:
+            loaded = load_pytree(path, self._ckpt_tree())
+        except ValueError as e:
+            raise ValueError(
+                "checkpoint does not match this engine's optimizer state "
+                f"layout ({self.worker.name}): {e}") from e
+        if int(loaded["worker_fp"]) != self.worker.fingerprint:
+            raise ValueError(
+                "checkpoint was written by a run with a different optimizer "
+                f"(engine runs {self.worker.name})")
+        if not np.array_equal(loaded["rng0"],
+                              self._rng0.cpu().numpy().astype(np.uint32)):
+            raise ValueError(
+                "checkpoint was written by a run with a different seed")
+        if (self._robust is not None and int(loaded["aggregator_fp"])
+                != self.aggregator.fingerprint):
+            raise ValueError(
+                "checkpoint was written by a run with a different robust "
+                "aggregator (the merge semantics would diverge)")
+        if self._server is not None:
+            if int(loaded["server_opt_fp"]) != self.server_opt.fingerprint:
+                raise ValueError(
+                    "checkpoint was written by a run with a different "
+                    "server-side outer optimizer (engine runs "
+                    f"{self.server_opt.name})")
+            so = loaded["server_opt"]
+            self._srv = (so["z"], so["mom"], so["t"])
+        self._state = loaded["worker_state"]
+        self._ef = loaded["ef"]
+        self.round = int(loaded["round"])
+        # drop the telemetry of rounds past the restore point
+        self.trace.rounds = [rec for rec in self.trace.rounds
+                             if rec.round < self.round]
+        return self

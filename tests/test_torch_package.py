@@ -39,19 +39,23 @@ def _imports(path: Path):
 def test_no_jax_and_no_reference_package_imports(path):
     for name in _imports(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "repro"), (path, name)
+        assert root not in ("jax", "jaxlib", "repro", "msgpack"), (path,
+                                                                  name)
 
 
 def test_chip_smoke_imports_no_jax():
     names = set(_imports(REPO / "chip_smoke.py"))
-    assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+    assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
                    for n in names), names
 
 
 def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
+            "sys.modules['msgpack'] = None; "
             "import repro_torch.ps, repro_torch.interop, "
+            "repro_torch.ps.robust, repro_torch.ps.server_opt, "
+            "repro_torch.checkpoint, "
             "repro_torch.kernels.adaseg_update.ops, "
             "repro_torch.kernels.sync_compress.ops; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -93,7 +97,8 @@ def test_bindings_match_the_c_entry_points():
     names = {k.name for k in _build.KERNELS}
     assert names == {"adaseg_explore", "adaseg_anchor", "adaseg_finish",
                      "merge_stacked", "uplink_stats", "quantize_uplink",
-                     "eff_uplink", "mask_uplink"}
+                     "eff_uplink", "mask_uplink", "trimmed_merge_stacked",
+                     "outer_apply"}
     for k in _build.KERNELS:
         assert (PKG / "csrc" / k.source).is_file()
         assert _c_params(k.source, k.symbol) == len(k.argtypes), k.name
@@ -142,6 +147,9 @@ DOCTEST_MODULES = [
     "repro_torch.kernels.sync_compress.ref", "repro_torch.obs.spans",
     "repro_torch.ps.compress", "repro_torch.ps.engine",
     "repro_torch.ps.faults", "repro_torch.ps.schedule", "repro_torch.ps.trace",
+    "repro_torch.ps.robust.aggregators", "repro_torch.ps.robust.byzantine",
+    "repro_torch.ps.robust.dp", "repro_torch.ps.server_opt",
+    "repro_torch.checkpoint.serialize",
 ]
 
 

@@ -82,8 +82,14 @@ def test_merge_broadcasts_one_row_to_every_receiver():
 
 
 def test_robust_merges_wait_for_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        tops.sync_merge_stacked((torch.zeros(2, 3),), agg=("trimmed", 1))
+    """The robust merges have since been ported: a trimmed mean drops each
+    coordinate's extremes, Krum the outlying worker (the JAX comparisons
+    are in ``tests/test_torch_robust.py``)."""
+    z = (torch.tensor([[1.0, 4.0], [9.0, 4.0], [2.0, -8.0], [3.0, 4.0]]),)
+    out = tops.sync_merge_stacked(z, agg=("trimmed", 1))[0]
+    assert out.tolist() == [[2.5, 4.0]] * 4
+    out = tops.sync_merge_stacked(z, agg=("krum", 1, 3))[0]
+    torch.testing.assert_close(out[0], (z[0][0] + z[0][1] + z[0][3]) / 3)
 
 
 def test_wrapper_refuses_other_devices():
