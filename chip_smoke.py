@@ -47,7 +47,24 @@ nothing of JAX. Phases, one JSON line each:
    median must end below the plain mean; the robust merge and the outer
    step must have launched where they run. Then a fused trimmed+Nesterov
    run is checkpointed at round 2, restored into a new engine and run on,
-   and must equal the uninterrupted run bit for bit.
+   and must equal the uninterrupted run bit for bit;
+8. flash_kernels — the flash-attention kernel (B12) against its plain
+   PyTorch version on unit-normal inputs, within 2e-5: the language-model
+   path's shape (B=1, H=14, Kh=2, S=T=1024, D=64, causal), a sliding
+   window of 256, a soft cap of 50, D=128 and S=1000 (a ragged tile); timed
+   beside its plain version and ``scaled_dot_product_attention`` (f32, no
+   TF32; a yardstick only, the port never calls it);
+9. lm — qwen2-0.5b at full width (24 layers, d_model 896, vocab 151936)
+   with the flash kernel on, trained through the port's ``make_ps_engine``
+   with M=4 workers, per-worker batch 1 × 1024 tokens, K=4, R=2, on the
+   fused and the reference backends (identity codec). The eval loss must
+   be finite, the two backends' loss traces must agree within 1e-3, and
+   the flash kernel must launch 24 times per forward; the peak device
+   memory, ms per local step and its breakdown (token draws, forward and
+   backward, update kernels, sync, eval) are reported. A narrow
+   qwen2-shaped model (head_dim 64) runs the same engine on the card and
+   on the CPU's plain versions, whose loss traces must agree within 1e-4
+   (``lm_small``).
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -109,6 +126,23 @@ TRIMS = (12, 31)     # TrimmedMean(0.2) and CoordinateMedian() at M = 64
 TRIM_PAIR_OPS = 3
 TOL_REL_STAT = 1e-5  # the outer step's Σ Δ², summed in another order
 OUTER_SETS = 160     # (1, n) timing sets: 160 × 7 × 64 KiB > the 50 MB L2
+# Flash attention (B12) at the language-model path's shape: qwen2-0.5b's
+# 14 query heads over 2 KV heads, head_dim 64, one sequence of 1024.
+FLASH_SHAPE = dict(b=1, h=14, kh=2, s=1024, d=64)
+FLASH_VARIANTS = {
+    "path": {},
+    "window256": dict(window=256),
+    "softcap50": dict(softcap=50.0),
+    "d128": dict(d=128),
+    "s1000": dict(s=1000),
+}
+TOL_FLASH = 2e-5     # max abs error on unit-normal inputs
+# The lm phase: examples/train_lm.py's settings at qwen2-0.5b's full width.
+LM_ARCH = "qwen2-0.5b"
+LM_M, LM_BATCH, LM_SEQ, LM_K, LM_R = 4, 1, 1024, 4, 2
+TOL_LM_TRACE = 1e-3  # fused vs reference eval-loss trace, relative
+TOL_LM_SMALL = 1e-4  # card vs CPU eval-loss trace of the narrow model
+LM_MEMORY_BUDGET = 70e9
 
 
 def emit(phase: str, **fields) -> None:
@@ -1010,6 +1044,243 @@ def phase_robust(results, game):
     check(same, "the resumed run differs from the uninterrupted one")
 
 
+def phase_flash_kernels(results):
+    """The flash-attention kernel (B12) against its plain version at the
+    path's shape and four variants, and its time beside the plain version
+    and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    dev = torch.device("cuda")
+
+    def inputs(seed, b, h, kh, s, d):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(*shape, generator=gen, device=dev)
+                for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d))]
+
+    def pairs(s, window):
+        """(query, key) pairs the causal mask (and window) leaves."""
+        i = torch.arange(s, dtype=torch.float64)
+        return float((torch.minimum(i + 1, torch.tensor(float(window)))
+                      if window else i + 1).sum())
+
+    err_all = 0.0
+    for label, var in FLASH_VARIANTS.items():
+        shape = {**FLASH_SHAPE, **{k: v for k, v in var.items()
+                                   if k in FLASH_SHAPE}}
+        opts = {k: v for k, v in var.items() if k not in FLASH_SHAPE}
+        b, h, kh, s, d = (shape[k] for k in ("b", "h", "kh", "s", "d"))
+        q, k, v = inputs(1, b, h, kh, s, d)
+        got = fk.flash_attention(q, k, v, causal=True, **opts)
+        want = fr.attention_ref(q, k, v, causal=True, **opts)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        err_all = max(err_all, err)
+        check(err <= TOL_FLASH, f"flash_attention {label}: max abs err {err}")
+        # 12 input sets of 5.2 MB (more at D=128) exceed the 50 MB L2
+        sets = [inputs(100 + i, b, h, kh, s, d) for i in range(12)]
+        ms = graph_ms([lambda x=x: fk.flash_attention(*x, causal=True,
+                                                      **opts)
+                       for x in sets * 2])
+        plain_ms = graph_ms([lambda x=x: fr.attention_ref(*x, causal=True,
+                                                          **opts)
+                             for x in sets])
+        flops = 4.0 * d * pairs(s, opts.get("window")) * b * h
+        b_ms, b_by = bound(4.0 * (2 * b * h * s * d + 2 * b * kh * s * d),
+                           flops)
+        row = dict(name="flash_attention", route="cuda",
+                   source="src/repro_torch/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention/kernel.py:97",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        extra = {}
+        if not opts:
+            # one PyTorch call of the same function, timed as a yardstick
+            sdpa_err = max_abs(tnf.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), want)
+            row["library_ms"] = graph_ms([
+                lambda x=x: tnf.scaled_dot_product_attention(
+                    *x, is_causal=True, enable_gqa=True) for x in sets * 2])
+            extra = dict(library="torch.nn.functional."
+                         "scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True), f32, TF32 off",
+                         library_max_abs_err=sdpa_err)
+        emit("kernel", **row, variant=label, shape=shape, options=opts,
+             tflops=flops / (ms * 1e-3) / 1e12, **extra)
+        if label == "path":
+            results["flash_attention"] = row
+    results["flash_attention"]["max_abs_err"] = err_all
+
+
+def lm_plan(cfg, m, k, seq, batch):
+    from repro_torch.core import AdaSEGConfig
+    from repro_torch.launch import TrainPlan
+
+    return TrainPlan(cfg=cfg, adaseg=AdaSEGConfig(
+        g0=20.0, diameter=2.0, alpha=1.0 / math.sqrt(m), k=k,
+        average_output=False), worker_mode="paper", k_local=k,
+        global_batch=m * batch, seq=seq, workers_override=m)
+
+
+def run_lm(plan, backend, rounds, device="cuda"):
+    """One ``make_ps_engine`` run: (eval losses, ms per local step, engine,
+    set-up seconds)."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.launch import make_ps_engine
+    from repro_torch.models import param_tree
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    eng = make_ps_engine(plan, jr.PRNGKey(0, device=device), rounds=rounds,
+                         backend=backend, codec_backend=backend,
+                         device=device)
+    sync()
+    t1 = time.perf_counter()
+    zbar = eng.run()
+    sync()
+    wall = time.perf_counter() - t1
+    losses = [r.residual for r in eng.trace.rounds]
+    check(all(v is not None and math.isfinite(v) for v in losses),
+          f"lm {backend}: non-finite eval loss {losses}")
+    param_tree(zbar, plan.cfg)       # z̄ has the model's leaves
+    check(all(bool(torch.isfinite(v).all()) for v in zbar),
+          f"lm {backend}: non-finite output iterate")
+    return losses, wall * 1e3 / (rounds * plan.k_local), eng, t1 - t0
+
+
+def phase_lm(results):
+    """qwen2-0.5b at full width through the port's make_ps_engine, fused and
+    reference; then a narrow model on the card against the CPU."""
+    import gc
+
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core.adaseg import eta_of
+    from repro_torch.kernels.adaseg_update.ops import (
+        adaseg_tree_anchor,
+        adaseg_tree_explore,
+    )
+    from repro_torch.kernels.sync_compress.ops import sync_merge_stacked
+    from repro_torch.models import make_eval_loss, make_lm_problem
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_backend="pallas")
+    plan = lm_plan(cfg, LM_M, LM_K, LM_SEQ, LM_BATCH)
+
+    # Warm-up: one full-width gradient of one worker, so the timed runs do
+    # not pay the first call's module loads.
+    t0 = time.perf_counter()
+    prob = make_lm_problem(cfg, batch=LM_BATCH, seq=LM_SEQ)
+    keys = jr.split(jr.PRNGKey(7), 1)
+    prob.oracle(prob.init(keys), prob.sample(keys))
+    torch.cuda.synchronize()
+    emit("lm_warmup", seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    forwards = LM_R * LM_K * 2 * LM_M + LM_R     # 2 oracle calls, 1 eval
+    runs = {}
+    for backend in ("fused", "reference"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, ms, eng, setup_s = run_lm(plan, backend, LM_R)
+        lm_launches = launches()
+        peak = torch.cuda.max_memory_allocated()
+        check(lm_launches["flash_attention"] == cfg.num_layers * forwards,
+              f"lm {backend}: flash_attention launched "
+              f"{lm_launches['flash_attention']} times, expected "
+              f"{cfg.num_layers} x {forwards} forwards")
+        if backend == "fused":
+            for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
+                check(lm_launches[name] > 0,
+                      f"{name} never launched on the lm path")
+            results["flash_attention"]["launches"] = \
+                lm_launches["flash_attention"]
+        check(peak <= LM_MEMORY_BUDGET,
+              f"lm {backend}: peak device memory {peak / 1e9:.1f} GB")
+        runs[backend] = losses
+        emit("lm", arch=LM_ARCH, backend=backend, workers=LM_M,
+             batch=LM_BATCH, seq=LM_SEQ, k=LM_K, rounds=LM_R,
+             params_per_worker=sum(v[0].numel() for v in eng.state.z_tilde),
+             eval_losses=losses, ms_per_local_step=ms, setup_seconds=setup_s,
+             tokens_per_s=2 * LM_M * LM_BATCH * LM_SEQ / (ms * 1e-3),
+             peak_memory_bytes=peak, forwards=forwards, launches=lm_launches)
+        if backend == "fused":
+            # Per local step: two token draws and two gradients of the
+            # fleet, explore + anchor over every leaf; a sync and an eval
+            # per round, spread over its K steps. Each part timed alone.
+            prob, st = eng.problem, eng.state
+            keys = jr.split(jr.PRNGKey(5), LM_M)
+            draw_ms = time_ms(lambda: prob.sample(keys), reps=2, trials=3)
+            xi = prob.sample(keys)
+            grad_ms = time_ms(lambda: prob.oracle(st.z_tilde, xi), reps=1,
+                              trials=3)
+            g = prob.oracle(st.z_tilde, xi)
+            kw = dict(sum_sq=st.sum_sq, g0=plan.adaseg.g0,
+                      d_alpha=plan.adaseg.diameter * plan.adaseg.alpha,
+                      proj=("identity",))
+
+            def update():
+                z_t, _ = adaseg_tree_explore(st.z_tilde, g, **kw)
+                adaseg_tree_anchor(st.z_tilde, z_t, g, **kw)
+
+            update_ms = time_ms(update, reps=2, trials=3)
+            w = 1.0 / eta_of(plan.adaseg, st.sum_sq)
+            w = w / w.sum()
+            sync_ms = time_ms(lambda: sync_merge_stacked(st.z_tilde, w),
+                              reps=2, trials=3)
+            eval_fn = make_eval_loss(cfg, batch=LM_BATCH, seq=LM_SEQ)
+            zbar = eng.z_bar()
+            eval_ms = time_ms(lambda: eval_fn(zbar), reps=2, trials=3)
+            parts = dict(token_draws=2 * draw_ms,
+                         forward_backward=2 * grad_ms,
+                         update_kernels=update_ms,
+                         sync=sync_ms / LM_K, eval=eval_ms / LM_K)
+            emit("lm_breakdown", backend=backend, ms_per_local_step=ms,
+                 **parts, rest=ms - sum(parts.values()))
+            del g, xi, zbar, prob, st
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["fused"],
+                                                 runs["reference"]))
+    emit("lm_compare", fused=runs["fused"], reference=runs["reference"],
+         max_rel=rel)
+    check(rel <= TOL_LM_TRACE,
+          f"lm: fused vs reference eval losses differ by {rel}")
+
+    # A narrow qwen2-shaped model (head_dim 64, the kernel's) on the card
+    # and on the CPU, where every kernel is its plain version.
+    small = ArchConfig(
+        name="qwen2-small", arch_type="dense", num_layers=2, d_model=256,
+        num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
+        qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0,
+        max_seq_len=128, attn_backend="pallas")
+    splan = lm_plan(small, 2, 2, 100, 2)
+    reset_launches()
+    card, _, _, _ = run_lm(splan, "fused", 2)
+    small_launches = launches()["flash_attention"]
+    host, _, _, _ = run_lm(splan, "fused", 2, device="cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+    emit("lm_small", arch=small.name, card=card, cpu=host, max_rel=rel,
+         flash_launches=small_launches)
+    check(small_launches > 0, "lm_small: flash_attention never launched")
+    check(rel <= TOL_LM_SMALL,
+          f"lm_small: card vs CPU eval losses differ by {rel}")
+
+
 def main() -> int:
     import torch
 
@@ -1024,9 +1295,12 @@ def main() -> int:
     results = phase_kernels()
     phase_codec_kernels(results)
     phase_robust_kernels(results)
+    phase_flash_kernels(results)
     game = phase_main(results)
     phase_codec(results, game)
     phase_robust(results, game)
+    del game                       # free the 1 GiB coupling matrix
+    phase_lm(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

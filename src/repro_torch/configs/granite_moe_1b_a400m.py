@@ -1,0 +1,11 @@
+"""granite-moe-1b-a400m — [moe] 32 experts top-8 [hf:ibm-granite/granite-3.0-1b-a400m-base]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-1b-a400m",
+    arch_type="moe",
+    num_layers=24, d_model=1024, num_heads=16, num_kv_heads=8,
+    d_ff=512, vocab_size=49155,
+    num_experts=32, experts_per_token=8,
+    tie_embeddings=True, activation="silu",
+)

@@ -139,6 +139,7 @@ def local_step(
             z_star, m_t, sum_sq=state.sum_sq, g0=cfg.g0, d_alpha=d_alpha,
             proj=spec,
         )
+        del m_t                     # free M_t before the second oracle call
         g_t = problem.oracle(z_t, draw(problem, r2, state.worker_id))  # g_t
         z_tilde_new, stat, g_sq = adaseg_tree_anchor(
             z_star, z_t, g_t, sum_sq=state.sum_sq, g0=cfg.g0,
@@ -148,6 +149,8 @@ def local_step(
         grad_norm_sq = g_sq + m_sq
     else:
         z_t = problem.project(tree_axpy(-eta, m_t, z_star))
+        m_sq = tree_norm_sq(m_t)
+        del m_t                     # free M_t before the second oracle call
         g_t = problem.oracle(z_t, draw(problem, r2, state.worker_id))  # g_t
         z_tilde_new = problem.project(tree_axpy(-eta, g_t, z_star))
 
@@ -155,7 +158,7 @@ def local_step(
             tree_norm_sq(tree_sub(z_t, z_star))
             + tree_norm_sq(tree_sub(z_t, z_tilde_new))
         ) / (5.0 * eta ** 2)
-        grad_norm_sq = tree_norm_sq(g_t) + tree_norm_sq(m_t)
+        grad_norm_sq = tree_norm_sq(g_t) + m_sq
 
     t_new = state.t + 1
     # Incremental uniform mean of the exploration iterates z_t (Line 14).

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .checkpoint.serialize import tree_flatten, tree_unflatten
+from .configs.base import ArchConfig
 from .core.adaseg import AdaSEGState
 from .problems.bilinear import BilinearGame, game_from_arrays
 
@@ -94,3 +96,50 @@ def srv_from_numpy(z, moments, t, *, device="cuda") -> tuple:
 
     return (leaves(z), tuple(leaves(m) for m in moments),
             torch.as_tensor(np.array(t, dtype=np.int32), device=dev))
+
+
+def params_from_numpy(tree, cfg: ArchConfig, *, device="cuda") -> tuple:
+    """A JAX model's parameter dict (numpy leaves, with or without leading
+    worker axes) as the port's tuple of leaves in ``jax.tree.leaves``
+    order, float32. The tree must be ``cfg``'s: the leaf count and each
+    leaf's trailing shape are checked against the port's template.
+
+    >>> from repro_torch.models import tiny_lm_config
+    >>> cfg = tiny_lm_config()
+    >>> tree = params_to_numpy(
+    ...     [torch.zeros(2, *t.shape) for t in _template_leaves(cfg)], cfg)
+    >>> sorted(tree), len(params_from_numpy(tree, cfg, device="cpu"))
+    (['embed', 'final_norm', 'lm_head', 'stages'], 12)
+    """
+    dev = resolve_device(device)
+    leaves = tree_flatten(tree)
+    template = _template_leaves(cfg)
+    if len(leaves) != len(template):
+        raise ValueError(f"{cfg.name}: {len(leaves)} leaves, expected "
+                         f"{len(template)}")
+    out = []
+    for v, t in zip(leaves, template):
+        arr = np.array(v, dtype=np.float32)
+        if arr.shape[arr.ndim - t.ndim:] != tuple(t.shape):
+            raise ValueError(f"{cfg.name}: leaf of shape {arr.shape} where "
+                             f"{tuple(t.shape)} is expected")
+        out.append(torch.as_tensor(arr, device=dev))
+    return tuple(out)
+
+
+def params_to_numpy(leaves, cfg: ArchConfig) -> dict:
+    """The inverse of :func:`params_from_numpy`: the JAX package's nested
+    parameter dict with numpy leaves."""
+    return tree_unflatten(
+        _template_dict(cfg),
+        iter(np.asarray(v.detach().cpu()) for v in leaves))
+
+
+def _template_dict(cfg: ArchConfig):
+    from .models.transformer import param_template
+
+    return param_template(cfg)
+
+
+def _template_leaves(cfg: ArchConfig) -> list:
+    return tree_flatten(_template_dict(cfg))

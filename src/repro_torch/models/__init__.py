@@ -1,0 +1,18 @@
+"""Models (port of ``repro.models``, training path of dense attention
+stacks): layers, attention with the flash kernel, the transformer, language
+models as problems and :class:`ModelWorker`."""
+from .problem import make_eval_loss, make_lm_problem, tiny_lm_config
+from .transformer import forward, init_model, loss_fn, param_leaves, param_tree
+from .worker import ModelWorker
+
+__all__ = [
+    "ModelWorker",
+    "forward",
+    "init_model",
+    "loss_fn",
+    "make_eval_loss",
+    "make_lm_problem",
+    "param_leaves",
+    "param_tree",
+    "tiny_lm_config",
+]

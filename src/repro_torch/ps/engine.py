@@ -425,6 +425,7 @@ def make_serial_chunk(
             state, ef, srv, telem = sync_stacked(*args, srv)
         else:
             state, ef = sync_stacked(*args)
+        del args                        # the pre-sync state can go now
         # Line 3–4: K_m^r masked local steps (no mask when all run).
         step_rngs = jr.split(rng_round, k_pad * m).reshape(k_pad, m, 2)
         for i in range(k_pad):
@@ -446,14 +447,21 @@ def make_serial_chunk(
     def chunk(state, ef, round_rngs, steps, alive, counts_cum, byz=None,
               srv=None):
         etas, ress, outer = [], [], []
+        # Only the round in flight holds the fleet state, so each state is
+        # freed as soon as its successor exists (a model's fleet state is
+        # gigabytes per copy).
+        held = [state]
+        del state
         for c in range(round_rngs.shape[0]):
             state, ef, srv, eta_stats, res, telem = round_body(
-                state, ef, srv, round_rngs[c], steps[c], alive[c],
+                held.pop(), ef, srv, round_rngs[c], steps[c], alive[c],
                 None if byz is None else byz[c], counts_cum[c])
+            held.append(state)
+            del state
             etas.append(eta_stats)
             ress.append(res)
             outer.append(telem)
-        return (state, ef, torch.stack(etas), torch.stack(ress), srv,
+        return (held.pop(), ef, torch.stack(etas), torch.stack(ress), srv,
                 torch.stack(outer) if server is not None else None)
 
     return chunk
@@ -593,12 +601,20 @@ class PSEngine:
     # Driving, output, telemetry
     # ------------------------------------------------------------------
 
+    def _take_state(self) -> PyTree:
+        """Hand the fleet state to the chunk, which then holds its only
+        reference: the pre-chunk state is freed after the first step
+        instead of living through the chunk. A chunk that raises leaves
+        the engine without a state."""
+        state, self._state = self._state, None
+        return state
+
     def _run_chunk(self, r0: int, r1: int) -> None:
         sl = slice(r0, r1)
         with self.tracer.span(f"chunk [{r0},{r1})", cat="chunk",
                               rounds=r1 - r0) as chunk_sp:
             state, ef, etas, ress, srv, outer = self._chunk_fn(
-                self._state, self._ef, self._round_rngs[sl],
+                self._take_state(), self._ef, self._round_rngs[sl],
                 self._eff_steps[sl], self._alive[sl], self._counts_cum[sl],
                 byz=self._byz[sl] if self._robust is not None else None,
                 srv=self._srv)

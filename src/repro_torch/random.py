@@ -15,7 +15,12 @@ package from one seed:
 * ``uniform``              = ``max(lo, fma(f, hi − lo, lo))`` with
   ``f = bitcast_f32((bits >> 9) | 0x3F800000) − 1`` (XLA fuses the scale
   and shift into one rounding; float64 reproduces it);
-* ``normal``               = ``√2 · erfinv(uniform(nextafter(−1, 0), 1))``.
+* ``normal``               = ``√2 · erfinv(uniform(nextafter(−1, 0), 1))``;
+* ``gumbel``               = ``−log(−log(uniform(tiny, 1)))`` (JAX's default
+  ``mode="low"``);
+* ``categorical``          = ``argmax(gumbel + logits)`` over the last axis,
+  the first maximum on ties (as XLA's argmax);
+* ``bernoulli``            = ``uniform < p`` (JAX's default ``mode="low"``).
 
 Keys are int64 tensors of shape ``(..., 2)`` holding uint32 words (PyTorch's
 uint32 lacks the arithmetic, so the cipher runs in int64 and masks with
@@ -169,3 +174,43 @@ def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.normal`` in float32 (erfinv transform; agrees with XLA's
     erfinv to a few ulps, not bit for bit)."""
     return _SQRT2 * torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, ``mode="low"`` (JAX's default):
+    ``−log(−log(u))`` with ``u = uniform(key, shape, tiny, 1)``. Not bit
+    for bit: XLA's f32 ``log`` on the CPU is not correctly rounded (it
+    differs from PyTorch's in ~14% of inputs, by an ulp), so ~23% of the
+    draws differ by an ulp or two; an argmax over them (:func:`categorical`)
+    flips only on a near-tie."""
+    g = uniform(key, shape, _TINY, 1.0)
+    return g.log_().neg_().log_().neg_()
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, shape=()
+                ) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` over the last
+    axis of ``logits`` (int32): ``argmax(gumbel(key, (*shape, V)) + logits)``
+    with the first maximum taken on ties, as XLA's argmax does. ``logits``
+    broadcasts against ``(*key_batch, *shape, V)``.
+
+    >>> key = PRNGKey(0, device="cpu")
+    >>> logits = torch.log(torch.tensor([0.0, 1.0, 0.0]))
+    >>> categorical(split(key, 2), logits, (4,)).tolist()
+    [[1, 1, 1, 1], [1, 1, 1, 1]]
+    """
+    shape = tuple(shape) + (logits.shape[-1],)
+    g = gumbel(key, shape)
+    g += logits.to(g.dtype)
+    return torch.argmax(g, dim=-1).to(torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (``mode="low"``, JAX's
+    default): ``uniform(key, shape) < p`` in float32. ``p`` is a number or
+    a float32 tensor that broadcasts against ``(*key_batch, *shape)``."""
+    u = uniform(key, shape)
+    return u < torch.as_tensor(p, dtype=torch.float32, device=u.device)

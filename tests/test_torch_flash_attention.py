@@ -1,0 +1,163 @@
+"""The port's flash attention (B12) on the CPU, held against the JAX
+package: its plain version against the Pallas kernel run in interpret
+mode (as ``tests/test_kernels.py`` runs it) over causal masking, sliding
+windows, logit soft-capping, GQA and a ragged sequence, and the model's
+self-attention (kernel forward, plain-version gradient) against the JAX
+package's ``custom_vjp`` in value and gradient, and the reference
+backend's long-sequence path (``_chunked_attention``) against the JAX
+package's at a small block.
+
+Tolerances: outputs at atol 2e-6 (the two sum the logits and the weighted
+values in another order: ~5e-7 measured on unit-normal inputs); gradients
+at rtol 1e-5 / atol 1e-6. On the CPU the wrapper runs its plain version, so
+the kernel route is held against it exactly. The CUDA kernel itself is held
+against the plain version on the card by ``chip_smoke.py`` (phase
+``flash_kernels``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
+from repro.kernels.flash_attention.ops import attention as jax_attention
+from repro.models.attention import _chunked_attention as jax_chunked
+from repro.models.attention import _flash_self_attention as jax_self
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.attention import _chunked_attention, _flash_self_attention
+
+OUT_ATOL = 2e-6
+GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+# (B, H, Kh, S, D, options): the path's causal GQA, a window, a soft cap,
+# grouped heads with both, plain multi-head, and a sequence that is not a
+# multiple of the JAX kernel's block (padded there, masked here).
+CASES = {
+    "causal_gqa": (1, 4, 2, 64, 8, {}),
+    "window": (2, 4, 1, 64, 16, dict(window=24)),
+    "softcap": (1, 2, 2, 64, 8, dict(softcap=5.0)),
+    "window_softcap_gqa": (1, 6, 2, 64, 16, dict(window=10, softcap=3.0)),
+    "mha": (2, 3, 3, 32, 8, {}),
+    "ragged": (1, 6, 2, 50, 8, {}),
+    "ragged_window": (1, 4, 2, 37, 8, dict(window=9)),
+}
+
+
+def _inputs(case, seed=0):
+    b, h, kh, s, d, kw = CASES[case]
+    rs = np.random.RandomState(seed)
+    q = rs.randn(b, h, s, d).astype(np.float32)
+    k = rs.randn(b, kh, s, d).astype(np.float32)
+    v = rs.randn(b, kh, s, d).astype(np.float32)
+    return q, k, v, kw
+
+
+def _jax_kernel(q, k, v, kw):
+    """The Pallas kernel in interpret mode, through the JAX wrapper (which
+    pads) when S is not a multiple of the block."""
+    if q.shape[2] % 16 == 0:
+        out = jax_flash(q, k, v, causal=True, block_q=16, block_k=16,
+                        interpret=True, **kw)
+    else:
+        out = jax_attention(q, k, v, causal=True, block_q=16, block_k=16,
+                            **kw)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_version_matches_the_pallas_kernel(case):
+    q, k, v, kw = _inputs(case)
+    want = _jax_kernel(q, k, v, kw)
+    got = attention_ref(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                        causal=True, **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=OUT_ATOL)
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_gqa",
+                                  "ragged"])
+def test_entry_point_runs_the_plain_version_on_the_cpu(case):
+    q, k, v, kw = _inputs(case)
+    q, k, v = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    before = fk.FLASH.launches
+    got = fk.flash_attention(q, k, v, causal=True, **kw)
+    want = attention_ref(q, k, v, causal=True, **kw)
+    assert torch.equal(got, want)
+    assert fk.FLASH.launches == before        # no launch on the CPU
+
+
+def test_wrapper_refuses_other_devices():
+    q = torch.empty(1, 2, 8, 64, device="meta")
+    with pytest.raises(ValueError):
+        fk.flash_attention(q, q, q)
+    assert fk.HEAD_DIMS == (64, 128)
+    assert fk.FLASH in _build.KERNELS
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_gqa",
+                                  "ragged"])
+def test_self_attention_value_and_gradient_match_jax(case):
+    """The model's layout (B, S, H, D): forward through the kernel route,
+    backward through the plain version, against the JAX package's
+    ``custom_vjp`` (Pallas forward, reference VJP)."""
+    q, k, v, kw = _inputs(case, seed=1)
+    q, k, v = (a.transpose(0, 2, 1, 3).copy() for a in (q, k, v))
+    cap, window = kw.get("softcap"), kw.get("window")
+    scale = q.shape[-1] ** -0.5
+    cot = np.random.RandomState(2).randn(*q.shape).astype(np.float32)
+
+    def jax_loss(q, k, v):
+        out = jax_self(q, k, v, scale=scale, cap=cap, window=window)
+        return jnp.sum(out * cot), out
+
+    (_, j_out), j_grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    t_out = _flash_self_attention(tq, tk, tv, scale=scale, cap=cap,
+                                  window=window)
+    t_grads = torch.autograd.grad((t_out * torch.tensor(cot)).sum(),
+                                  (tq, tk, tv))
+    np.testing.assert_allclose(t_out.detach().numpy(), np.asarray(j_out),
+                               rtol=0, atol=OUT_ATOL)
+    for tg, jg in zip(t_grads, j_grads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **GRAD_TOL)
+
+
+def test_self_attention_gradient_is_the_plain_versions():
+    """Within the port: the custom backward equals autograd through the
+    plain version, bit for bit (it is that computation)."""
+    q, k, v, kw = _inputs("window_softcap_gqa", seed=3)
+    args = [torch.tensor(a.transpose(0, 2, 1, 3).copy(), requires_grad=True)
+            for a in (q, k, v)]
+    out = _flash_self_attention(*args, scale=0.3, cap=kw["softcap"],
+                                window=kw["window"])
+    g1 = torch.autograd.grad(out.square().sum(), args)
+    ref = attention_ref(*(a.transpose(1, 2) for a in args), causal=True,
+                        window=kw["window"], softcap=kw["softcap"],
+                        scale=0.3).transpose(1, 2)
+    g2 = torch.autograd.grad(ref.square().sum(), args)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case,causal", [
+    ("causal_gqa", True), ("window_softcap_gqa", True), ("mha", False),
+    ("window", False)])
+def test_chunked_attention_matches_jax(case, causal):
+    """The reference backend's path for S >= 8192, here at block 16 over
+    the model's (B, S, H, D) layout: atol 2e-6 (sum order)."""
+    q, k, v, kw = _inputs(case, seed=4)
+    q, k, v = (a.transpose(0, 2, 1, 3).copy() for a in (q, k, v))
+    opts = dict(scale=q.shape[-1] ** -0.5, cap=kw.get("softcap"),
+                causal=causal, window=kw.get("window"), block=16)
+    want = np.asarray(jax_chunked(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), **opts))
+    got = _chunked_attention(torch.tensor(q), torch.tensor(k),
+                             torch.tensor(v), **opts)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=OUT_ATOL)
