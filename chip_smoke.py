@@ -14,7 +14,9 @@ nothing of JAX. Phases, one JSON line each:
 3. kernels — holds each CUDA kernel against its plain PyTorch version on
    the same inputs, at the main path's shapes (64, 16384) and at a ragged
    (64, 16421) with a box(0.25, 1.0) projection, and times both with CUDA
-   events over inputs that do not fit in L2. The four codec uplink kernels
+   events over inputs that do not fit in L2. The one-shot update (B4) is
+   held in its box mode, in its l2 raw-norms mode and with eta given as
+   well as fused. The four codec uplink kernels
    (scale, quantize, eff, mask) must match their plain versions exactly,
    with and without aliveness (one dead worker); the merge kernel is also
    held and timed on its gated branch (``recv``/``old``, ``kernel_case``);
@@ -25,7 +27,10 @@ nothing of JAX. Phases, one JSON line each:
    path must have launched, and the reference backend's residual trace
    must agree within rtol 1e-4. One-round warm-ups at G0=1 come first and
    record how far the backends drift there (``sensitivity``); ``breakdown``
-   splits the fused ms per local step into its parts;
+   splits the fused ms per local step into its parts; then ``one_shot``
+   gives one local step's M_t and g_t on the fleet's state to
+   ``adaseg_tree_update`` (B4, counted) and to B1 then B2, which must
+   agree;
 5. l2 — the same game on an l2 ball for R=2, which must run through
    ``adaseg_finish``;
 6. codec — the same game through the compressed, fault-tolerant sync:
@@ -54,17 +59,42 @@ nothing of JAX. Phases, one JSON line each:
    window of 256, a soft cap of 50, D=128 and S=1000 (a ragged tile); timed
    beside its plain version and ``scaled_dot_product_attention`` (f32, no
    TF32; a yardstick only, the port never calls it);
-9. lm — qwen2-0.5b at full width (24 layers, d_model 896, vocab 151936)
+9. ssd_kernels — the SSD scan kernel (B13) against its plain version (the
+   kernel's chunked arithmetic) within TOL_SSD and against the sequential
+   recurrence within TOL_SSD_ORACLE (max abs error over the largest |y|),
+   reruns bit-identical: the mamba2 path's shape (B=1, L=1024, H=32, P=64,
+   N=128, chunk 128, mamba2's a), chunk 64, B=2 (b and c shared by the
+   heads of each batch row) and the smoke config's P=16, N=16, chunk 8,
+   each also on x, b and c as strided views of one packed tensor, as the
+   model hands them in (bit-identical to the contiguous call);
+   timed beside its plain version (no PyTorch call computes the scan);
+10. lm — qwen2-0.5b at full width (24 layers, d_model 896, vocab 151936)
    with the flash kernel on, trained through the port's ``make_ps_engine``
    with M=4 workers, per-worker batch 1 × 1024 tokens, K=4, R=2, on the
    fused and the reference backends (identity codec). The eval loss must
    be finite, the two backends' loss traces must agree within 1e-3, and
    the flash kernel must launch 24 times per forward; the peak device
    memory, ms per local step and its breakdown (token draws, forward and
-   backward, update kernels, sync, eval) are reported. A narrow
+   backward, update kernels, sync, eval) are reported. ``lm_step_diff``
+   takes one update from the fused run's final state through B1 and B2
+   and through the reference backend's ops and reports, leaf by leaf, the
+   entries that differ, by how much, and whether B1 rounds z* − η·g once;
+   the merge kernel against the reference's mean; the eval loss after
+   each update. A narrow
    qwen2-shaped model (head_dim 64) runs the same engine on the card and
    on the CPU's plain versions, whose loss traces must agree within 1e-4
-   (``lm_small``).
+   (``lm_small``);
+11. mamba2 — mamba2-370m at full width (48 layers, d_model 1024, 32 heads
+   of P=64, N=128, chunk 128, vocab 50280) with the SSD scan kernel on
+   (``ssm_backend="pallas"``), through the same engine and settings as
+   ``lm``: finite eval losses, fused vs reference within 1e-3, B13 launched
+   48 times per forward, B1, B2 and B5 launched, the peak memory within
+   budget, ms per local step and its breakdown, ``mamba2_step_diff``, and
+   estimates of the SSD mixer's share of a step from isolated timings
+   (``mamba2_ssd``: B13's µs per launch and the chunked version's gradient
+   at one layer's shape, each times the step's calls); then mamba2's
+   smoke config on the card against the CPU
+   within 1e-4 (``mamba2_small``).
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -73,6 +103,7 @@ result line.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -143,6 +174,22 @@ LM_M, LM_BATCH, LM_SEQ, LM_K, LM_R = 4, 1, 1024, 4, 2
 TOL_LM_TRACE = 1e-3  # fused vs reference eval-loss trace, relative
 TOL_LM_SMALL = 1e-4  # card vs CPU eval-loss trace of the narrow model
 LM_MEMORY_BUDGET = 70e9
+# The SSD scan (B13) at the mamba2 path's shape: mamba2-370m's 32 heads of
+# P=64, state N=128, chunk 128, one sequence of 1024; a = -exp(a_log) of
+# its init, -linspace(1, 16, H).
+SSD_SHAPE = dict(b=1, l=1024, h=32, p=64, n=128, q=128)
+SSD_VARIANTS = {
+    "path": {},
+    "chunk64": dict(q=64),
+    "batch2": dict(b=2),                          # b and c shared per batch
+    "smoke": dict(l=128, p=16, n=16, q=8),        # mamba2's smoke config
+}
+# max abs err over the largest |y| (~330 at the path): against the plain
+# version of the kernel's own arithmetic (sum order: the prefix sum and the
+# 128-term dots), and against the sequential recurrence
+TOL_SSD = 5e-5
+TOL_SSD_ORACLE = 2e-4
+MAMBA_ARCH = "mamba2-370m"
 
 
 def emit(phase: str, **fields) -> None:
@@ -339,6 +386,25 @@ def phase_kernels():
                 *ptr(x, "z", "a", "b", "s_t", "s_l", "out", "out2", "part"),
                 M, N, ak.TILE, 1, stream(x)),
             kernel=ak.adaseg_finish, plain=ar.adaseg_finish_ref),
+        "adaseg_update": dict(
+            src="src/repro_torch/csrc/adaseg_update.cu",
+            replaces="src/repro/kernels/adaseg_update/kernel.py:267",
+            # read z*, m, g, sum_sq; write z_t, z~, (M, tiles, 2) partials
+            bytes=4 * (5 * M * N + M + 2 * M * tiles), flops=12 * M * N,
+            run=lambda x, box, f: f(x["z"], x["a"], x["b"],
+                                    sum_sq=x["sum_sq"], g0=G0,
+                                    d_alpha=DIAMETER, **box_kw(box)),
+            # l2 pass 1 (raw candidates and their norms), and eta given
+            more=(lambda x, box, f: f(x["z"], x["a"], x["b"],
+                                      sum_sq=x["sum_sq"], g0=G0,
+                                      d_alpha=DIAMETER, raw_norms=True),
+                  lambda x, box, f: f(x["z"], x["a"], x["b"], x["s_t"],
+                                      **box_kw(box))),
+            launch=lambda x: ak.UPDATE(
+                *ptr(x, "z", "a", "b", "sum_sq", "out", "out2", "part"), M,
+                N, ak.TILE, 1, 1, G0 ** 2, DIAMETER, 1, -1.0, 1.0, 0,
+                stream(x)),
+            kernel=ak.adaseg_update, plain=ar.adaseg_update_ref),
         "merge_stacked": dict(
             src="src/repro_torch/csrc/sync_compress.cu",
             replaces="src/repro/kernels/sync_compress/kernel.py:405",
@@ -354,16 +420,22 @@ def phase_kernels():
 
     # Timing inputs: 12 sets of the main path's shape, cycled so the bytes
     # in flight exceed the 50 MB L2, as the main path finds them cold.
+    def flat(out):
+        """A wrapper's outputs as a flat list of tensors."""
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in flat(o)]
+
     sets = [inputs(100 + i, N) for i in range(12)]
     results = {}
     for name, c in cases.items():
         errs = []
-        for n, box in ((N, (-1.0, 1.0)), (N_RAGGED, (0.25, 1.0))):
+        for (n, box), run in itertools.product(
+                ((N, (-1.0, 1.0)), (N_RAGGED, (0.25, 1.0))),
+                (c["run"], *c.get("more", ()))):
             x = inputs(1, n)
-            got = c["run"](x, box, c["kernel"])
-            want = c["run"](x, box, c["plain"])
-            if name == "merge_stacked":
-                got, want = (got,), (want,)
+            got = flat(run(x, box, c["kernel"]))
+            want = flat(run(x, box, c["plain"]))
             torch.cuda.synchronize()
             for gt, wt in zip(got, want):
                 if gt.ndim == 2:                      # elementwise output
@@ -627,7 +699,7 @@ def phase_main(results):
          max_rel=abs(warm_f[0] - warm_r[0]) / abs(warm_r[0]))
 
     reset_launches()
-    res_f, ms_f, _ = run_engine(game, game.problem, "fused", R)
+    res_f, ms_f, eng_f = run_engine(game, game.problem, "fused", R)
     main_launches = launches()
     check(res_f[-1] < res_f[0], f"residual did not fall: {res_f}")
     for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
@@ -645,6 +717,8 @@ def phase_main(results):
                             + results["adaseg_anchor"]["ms"]))
     emit("breakdown", ms_per_local_step=ms_f, **parts,
          rest=ms_f - sum(parts.values()))
+    one_shot(results, game, eng_f.state)
+    del eng_f
 
     res_r, ms_r, _ = run_engine(game, game.problem, "reference", R)
     rel = max(abs(a - b) / abs(b) for a, b in zip(res_f, res_r))
@@ -663,6 +737,45 @@ def phase_main(results):
     emit("l2", radius=radius, residuals=res_l2, ms_per_local_step=ms_l2,
          launches=l2_launches)
     return game
+
+
+def one_shot(results, game, st):
+    """B4 through ``adaseg_tree_update`` on the main game's fleet state
+    after the fused run: one local step's M_t and g_t, given to the one-shot
+    update and to B1 then B2 on the same eta, which must agree."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.core import AdaSEGConfig
+    from repro_torch.kernels.adaseg_update.ops import (
+        adaseg_tree_anchor,
+        adaseg_tree_explore,
+        adaseg_tree_update,
+    )
+
+    cfg = AdaSEGConfig(g0=G0, diameter=DIAMETER, k=K)
+    kw = dict(sum_sq=st.sum_sq, g0=cfg.g0, d_alpha=cfg.diameter * cfg.alpha,
+              proj=("box", -1.0, 1.0))
+    prob = game.problem
+    r = jr.split(jr.split(jr.PRNGKey(9), M))
+    m_t = prob.oracle(st.z_tilde, prob.sample(r[:, 0]))
+    z_t, _ = adaseg_tree_explore(st.z_tilde, m_t, **kw)
+    g_t = prob.oracle(z_t, prob.sample(r[:, 1]))
+    z_tl, stat, _ = adaseg_tree_anchor(st.z_tilde, z_t, g_t, **kw)
+    reset_launches()
+    u_t, u_tl, z_sq = adaseg_tree_update(st.z_tilde, m_t, g_t, **kw)
+    n_launch = launches()["adaseg_update"]
+    torch.cuda.synchronize()
+    err = max(max_abs(a, b) for a, b in zip(u_t + u_tl, z_t + z_tl))
+    eta = cfg.diameter * cfg.alpha / (cfg.g0 ** 2 + st.sum_sq).sqrt()
+    rel = rel_err(z_sq, stat / (5.0 * eta ** 2))
+    same = all(bool((a == b).all()) for a, b in zip(u_t + u_tl, z_t + z_tl))
+    emit("one_shot", leaves=len(u_t), launches=n_launch, max_abs_err=err,
+         z_sq_rel_err=rel, bit_identical=same)
+    check(n_launch == len(u_t), f"adaseg_update launched {n_launch} times")
+    check(err <= TOL_ELEM and rel <= TOL_STAT,
+          f"one-shot vs explore+anchor: err {err}, z_sq rel err {rel}")
+    results["adaseg_update"]["launches"] = n_launch
 
 
 def phase_codec(results, game):
@@ -1115,6 +1228,89 @@ def phase_flash_kernels(results):
     results["flash_attention"]["max_abs_err"] = err_all
 
 
+def phase_ssd_kernels(results):
+    """The SSD scan kernel (B13) against its plain version (the kernel's
+    chunked arithmetic) and the sequential recurrence, at the mamba2 path's
+    shape and three variants; timed beside the plain version."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ref as sr
+
+    dev = torch.device("cuda")
+
+    def inputs(seed, b, l, h, p, n):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(b, l, h, p, generator=gen, device=dev)
+        dt = tnf.softplus(torch.randn(b, l, h, generator=gen, device=dev))
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        bc = torch.randn(2, b, l, n, generator=gen, device=dev)
+        return x, dt, a, bc[0], bc[1]
+
+    def rel(got, want):
+        return max_abs(got, want) / float(want.abs().max())
+
+    err_all = 0.0
+    for label, var in SSD_VARIANTS.items():
+        shape = {**SSD_SHAPE, **var}
+        b, l, h, p, n, q = (shape[k] for k in ("b", "l", "h", "p", "n", "q"))
+        args = inputs(1, b, l, h, p, n)
+        got = sk.ssd_scan(*args, chunk=q)
+        again = sk.ssd_scan(*args, chunk=q)
+        want = sr.ssd_scan_ref(*args, chunk=q)
+        oracle = sr.ssd_ref(*args)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        err_all = max(err_all, err)
+        errs = dict(rel_err=rel(got, want), oracle_rel_err=rel(got, oracle),
+                    plain_oracle_rel_err=rel(want, oracle))
+        check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: not finite")
+        check(torch.equal(got, again), f"ssd_scan {label}: reruns differ")
+        # x, b and c as the model hands them in: views of one packed row of
+        # H·P + 2N floats, read through their strides
+        packed = torch.cat([args[0].reshape(b, l, h * p), args[3], args[4]],
+                           dim=-1)
+        xv, bv, cv = torch.split(packed, [h * p, n, n], dim=-1)
+        strided = sk.ssd_scan(xv.reshape(b, l, h, p), args[1], args[2], bv,
+                              cv, chunk=q)
+        check(torch.equal(strided, got),
+              f"ssd_scan {label}: strided views give another result")
+        check(errs["rel_err"] <= TOL_SSD,
+              f"ssd_scan {label}: {errs['rel_err']} of max |y| off the plain "
+              "version")
+        check(errs["oracle_rel_err"] <= TOL_SSD_ORACLE,
+              f"ssd_scan {label}: {errs['oracle_rel_err']} of max |y| off "
+              "the recurrence")
+        # The least work of the function over the Q(Q+1)/2 visible pairs
+        # of each chunk: C.B^T (N per pair) once per (batch, chunk), since
+        # every head shares B and C; per head L.xdt (P per pair), C.S and
+        # the state update (N.P each, per row).
+        pairs = q * (q + 1) // 2
+        flops = 2.0 * b * (l // q) * (pairs * n + h * (pairs * p
+                                                        + 2 * q * n * p))
+        nbytes = 4.0 * (2 * b * l * h * p + 2 * b * l * n + b * l * h + h)
+        # input sets cycled so the bytes in flight exceed the 50 MB L2
+        sets = [inputs(100 + i, b, l, h, p, n)
+                for i in range(max(2, math.ceil(60e6 / nbytes)))]
+        ms = graph_ms([lambda x=x: sk.ssd_scan(*x, chunk=q)
+                       for x in sets * 2])
+        plain_ms = graph_ms([lambda x=x: sr.ssd_scan_ref(*x, chunk=q)
+                             for x in sets])
+        b_ms, b_by = bound(nbytes, flops)
+        row = dict(name="ssd_scan", route="cuda",
+                   source="src/repro_torch/csrc/ssd_scan.cu",
+                   replaces="src/repro/kernels/ssd_scan/kernel.py:72",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        emit("kernel", **row, variant=label, shape=shape, **errs,
+             flops=flops, tflops=flops / (ms * 1e-3) / 1e12,
+             library="none: no one PyTorch call computes the SSD scan")
+        if label == "path":
+            results["ssd_scan"] = row
+    results["ssd_scan"]["max_abs_err"] = err_all
+
+
 def lm_plan(cfg, m, k, seq, batch):
     from repro_torch.core import AdaSEGConfig
     from repro_torch.launch import TrainPlan
@@ -1156,16 +1352,17 @@ def run_lm(plan, backend, rounds, device="cuda"):
     return losses, wall * 1e3 / (rounds * plan.k_local), eng, t1 - t0
 
 
-def phase_lm(results):
-    """qwen2-0.5b at full width through the port's make_ps_engine, fused and
-    reference; then a narrow model on the card against the CPU."""
+def train_lm(results, label, cfg, kernel):
+    """``cfg`` at full width through the port's make_ps_engine, fused and
+    reference (M=4, 1 x 1024 tokens per worker, K=4, R=2, identity codec):
+    finite eval losses that agree within TOL_LM_TRACE, ``kernel`` launched
+    once per layer per forward, the peak memory within budget, and the
+    fused run's ms per local step split into its parts."""
     import gc
 
     import torch
 
     from repro_torch import random as jr
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ArchConfig
     from repro_torch.core.adaseg import eta_of
     from repro_torch.kernels.adaseg_update.ops import (
         adaseg_tree_anchor,
@@ -1176,7 +1373,6 @@ def phase_lm(results):
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_backend="pallas")
     plan = lm_plan(cfg, LM_M, LM_K, LM_SEQ, LM_BATCH)
 
     # Warm-up: one full-width gradient of one worker, so the timed runs do
@@ -1186,7 +1382,7 @@ def phase_lm(results):
     keys = jr.split(jr.PRNGKey(7), 1)
     prob.oracle(prob.init(keys), prob.sample(keys))
     torch.cuda.synchronize()
-    emit("lm_warmup", seconds=time.perf_counter() - t0)
+    emit(f"{label}_warmup", seconds=time.perf_counter() - t0)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1198,20 +1394,18 @@ def phase_lm(results):
         losses, ms, eng, setup_s = run_lm(plan, backend, LM_R)
         lm_launches = launches()
         peak = torch.cuda.max_memory_allocated()
-        check(lm_launches["flash_attention"] == cfg.num_layers * forwards,
-              f"lm {backend}: flash_attention launched "
-              f"{lm_launches['flash_attention']} times, expected "
-              f"{cfg.num_layers} x {forwards} forwards")
+        check(lm_launches[kernel] == cfg.num_layers * forwards,
+              f"{label} {backend}: {kernel} launched {lm_launches[kernel]} "
+              f"times, expected {cfg.num_layers} x {forwards} forwards")
         if backend == "fused":
             for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
                 check(lm_launches[name] > 0,
-                      f"{name} never launched on the lm path")
-            results["flash_attention"]["launches"] = \
-                lm_launches["flash_attention"]
+                      f"{name} never launched on the {label} path")
+            results[kernel]["launches"] = lm_launches[kernel]
         check(peak <= LM_MEMORY_BUDGET,
-              f"lm {backend}: peak device memory {peak / 1e9:.1f} GB")
+              f"{label} {backend}: peak device memory {peak / 1e9:.1f} GB")
         runs[backend] = losses
-        emit("lm", arch=LM_ARCH, backend=backend, workers=LM_M,
+        emit(label, arch=cfg.name, backend=backend, workers=LM_M,
              batch=LM_BATCH, seq=LM_SEQ, k=LM_K, rounds=LM_R,
              params_per_worker=sum(v[0].numel() for v in eng.state.z_tilde),
              eval_losses=losses, ms_per_local_step=ms, setup_seconds=setup_s,
@@ -1248,37 +1442,187 @@ def phase_lm(results):
                          forward_backward=2 * grad_ms,
                          update_kernels=update_ms,
                          sync=sync_ms / LM_K, eval=eval_ms / LM_K)
-            emit("lm_breakdown", backend=backend, ms_per_local_step=ms,
+            emit(f"{label}_breakdown", backend=backend, ms_per_local_step=ms,
                  **parts, rest=ms - sum(parts.values()))
+            step_diff(label, plan, prob, st, g, eval_fn)
             del g, xi, zbar, prob, st
         del eng
         gc.collect()
         torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(runs["fused"],
                                                  runs["reference"]))
-    emit("lm_compare", fused=runs["fused"], reference=runs["reference"],
+    emit(f"{label}_compare", fused=runs["fused"], reference=runs["reference"],
          max_rel=rel)
     check(rel <= TOL_LM_TRACE,
-          f"lm: fused vs reference eval losses differ by {rel}")
+          f"{label}: fused vs reference eval losses differ by {rel}")
 
-    # A narrow qwen2-shaped model (head_dim 64, the kernel's) on the card
-    # and on the CPU, where every kernel is its plain version.
+
+def leaf_names(tree, prefix=""):
+    """Dotted leaf paths in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [name for k in sorted(tree)
+                for name in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (tuple, list)):
+        return [name for i, v in enumerate(tree)
+                for name in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def step_diff(label, plan, prob, st, g, eval_fn):
+    """One update z* − η·g from the fused run's final state and one
+    gradient (as M_t and as g_t), through the update kernels (B1 with η
+    given and η fused from sum_sq, then B2) and through the reference
+    backend's tensor ops, leaf by leaf: how many entries of z_t and z̃
+    differ, by how much, and how many of B1's entries differ from z* − η·g
+    rounded once (formed in f64). Then the (Z_t)² statistic of both, the
+    eval loss at worker 0's z_t after each update, and the merge kernel
+    (B5) against the reference's weighted mean of z*."""
+    import torch
+
+    from repro_torch.core.adaseg import eta_of
+    from repro_torch.core.tree import per_worker, tree_axpy, tree_norm_sq
+    from repro_torch.kernels.adaseg_update.ops import (
+        adaseg_tree_anchor,
+        adaseg_tree_explore,
+    )
+    from repro_torch.kernels.sync_compress.ops import sync_merge_stacked
+    from repro_torch.models.transformer import param_template
+
+    names = leaf_names(param_template(plan.cfg))
+    eta = eta_of(plan.adaseg, st.sum_sq)
+    kw = dict(sum_sq=st.sum_sq, g0=plan.adaseg.g0,
+              d_alpha=plan.adaseg.diameter * plan.adaseg.alpha,
+              proj=("identity",))
+    w = 1.0 / eta
+    w = w / w.sum()
+    rows, kernel_z, ref_z = [], [], []
+    stat_k = stat_r = 0.0
+    for name, z, gl in zip(names, st.z_tilde, g):
+        (zk,), _ = adaseg_tree_explore((z,), (gl,), eta=eta,
+                                       proj=("identity",))
+        (zf,), _ = adaseg_tree_explore((z,), (gl,), **kw)
+        (zr,) = prob.project(tree_axpy(-eta, (gl,), (z,)))
+        (ak,), stat, _ = adaseg_tree_anchor((z,), (zk,), (gl,), eta=eta,
+                                            proj=("identity",))
+        (ar,) = prob.project(tree_axpy(-eta, (gl,), (z,)))
+        stat_k = stat_k + stat
+        stat_r = (stat_r + tree_norm_sq((zr - z,))
+                  + tree_norm_sq((zr - ar,)))
+        e = per_worker(eta, z).double()
+        off_once = 0
+        step = 1 << 22
+        fz, fg, fk = (v.reshape(v.shape[0], -1) for v in (z, gl, zk))
+        for i in range(0, fz.shape[1], step):
+            once = (fz[:, i:i + step].double()
+                    - e.reshape(-1, 1) * fg[:, i:i + step].double()).float()
+            off_once += int((fk[:, i:i + step] != once).sum())
+        (mk,) = sync_merge_stacked((z,), w, normalize=True)
+        mr = torch.sum(per_worker(w, z) * z, dim=0, keepdim=True)
+        eg = (e.reshape(-1, 1) * fg[:, ::97].double()).abs()
+        rows.append(dict(
+            leaf=name, numel=z.numel(),
+            differ=int((zk != zr).sum()),
+            max_abs=float((zk - zr).abs().max()),
+            max_abs_z=float(z.abs().max()),
+            median_eta_g_over_z=float(
+                (eg / fz[:, ::97].double().abs().clamp_min(1e-30)).median()),
+            fused_eta_differ=int((zf != zk).sum()),
+            anchor_differ=int((ak != ar).sum()),
+            anchor_max_abs=float((ak - ar).abs().max()),
+            kernel_off_once=off_once,
+            merge_differ=int((mk[:1] != mr).sum()),
+            merge_max_abs=float((mk[:1] - mr).abs().max())))
+        kernel_z.append(zk[0])
+        ref_z.append(zr[0])
+        del zk, zf, zr, ak, ar, mk, mr, eg
+    with torch.no_grad():
+        loss_k = float(eval_fn(tuple(kernel_z)))
+        loss_r = float(eval_fn(tuple(ref_z)))
+    emit(f"{label}_step_diff", leaves=rows,
+         z_sq_stat_max_rel=float(((stat_k - stat_r) / stat_r).abs().max()),
+         eval_loss_kernel_update=loss_k, eval_loss_reference_update=loss_r,
+         eval_rel=abs(loss_k - loss_r) / abs(loss_r))
+
+
+def small_lm(label, cfg, kernel, seq):
+    """A narrow ``cfg`` through the same engine on the card and on the CPU,
+    where every kernel is its plain version: the eval-loss traces must
+    agree within TOL_LM_SMALL."""
+    splan = lm_plan(cfg, 2, 2, seq, 2)
+    reset_launches()
+    card, _, _, _ = run_lm(splan, "fused", 2)
+    small_launches = launches()[kernel]
+    host, _, _, _ = run_lm(splan, "fused", 2, device="cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+    emit(label, arch=cfg.name, card=card, cpu=host, max_rel=rel,
+         **{f"{kernel}_launches": small_launches})
+    check(small_launches > 0, f"{label}: {kernel} never launched")
+    check(rel <= TOL_LM_SMALL,
+          f"{label}: card vs CPU eval losses differ by {rel}")
+
+
+def phase_lm(results):
+    """qwen2-0.5b at full width with the flash kernel; then a narrow
+    qwen2-shaped model (head_dim 64, the kernel's) on the card against the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ArchConfig
+
+    train_lm(results, "lm", dataclasses.replace(get_config(LM_ARCH),
+                                                attn_backend="pallas"),
+             "flash_attention")
     small = ArchConfig(
         name="qwen2-small", arch_type="dense", num_layers=2, d_model=256,
         num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512, vocab_size=512,
         qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0,
         max_seq_len=128, attn_backend="pallas")
-    splan = lm_plan(small, 2, 2, 100, 2)
-    reset_launches()
-    card, _, _, _ = run_lm(splan, "fused", 2)
-    small_launches = launches()["flash_attention"]
-    host, _, _, _ = run_lm(splan, "fused", 2, device="cpu")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(card, host))
-    emit("lm_small", arch=small.name, card=card, cpu=host, max_rel=rel,
-         flash_launches=small_launches)
-    check(small_launches > 0, "lm_small: flash_attention never launched")
-    check(rel <= TOL_LM_SMALL,
-          f"lm_small: card vs CPU eval losses differ by {rel}")
+    small_lm("lm_small", small, "flash_attention", 100)
+
+
+def ssd_step_parts(results, cfg):
+    """Estimates of the SSD mixer's share of one fused local step at full
+    width, from isolated timings, not read from the step: B13's µs per
+    launch (``ssd_kernels``) and the gradient of ``ssd_chunked`` at one
+    layer's shape on random inputs, each times the 2·M·layers SSD calls of
+    a local step."""
+    import torch
+    import torch.nn.functional as tnf
+
+    from repro_torch.models.ssm import ssd_chunked
+
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    args = tuple(t.requires_grad_() for t in (
+        randn(LM_BATCH, LM_SEQ, h, p),
+        tnf.softplus(randn(LM_BATCH, LM_SEQ, h)),
+        -torch.linspace(1.0, 16.0, h, device="cuda"),
+        randn(LM_BATCH, LM_SEQ, n), randn(LM_BATCH, LM_SEQ, n)))
+    cot = randn(LM_BATCH, LM_SEQ, h, p)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        ssd_chunked(*args, cfg.ssm_chunk), args, cot), reps=4, trials=5)
+    per_step = 2 * LM_M * cfg.num_layers        # SSD calls per local step
+    emit("mamba2_ssd", calls_per_step=per_step,
+         ssd_chunked_backward_ms=bwd_ms,
+         forward_ms_per_step_est=per_step * results["ssd_scan"]["ms"],
+         backward_ms_per_step_est=per_step * bwd_ms)
+
+
+def phase_mamba2(results):
+    """mamba2-370m at full width with the SSD scan kernel; then its smoke
+    config (2 layers, d_model 256, P=16, N=16, chunk 8) on the card against
+    the CPU."""
+    from repro_torch.configs import get_config, smoke_config
+
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), ssm_backend="pallas")
+    train_lm(results, "mamba2", cfg, "ssd_scan")
+    ssd_step_parts(results, cfg)
+    small_lm("mamba2_small", dataclasses.replace(smoke_config(MAMBA_ARCH),
+                                                 ssm_backend="pallas"),
+             "ssd_scan", 128)
 
 
 def main() -> int:
@@ -1296,11 +1640,13 @@ def main() -> int:
     phase_codec_kernels(results)
     phase_robust_kernels(results)
     phase_flash_kernels(results)
+    phase_ssd_kernels(results)
     game = phase_main(results)
     phase_codec(results, game)
     phase_robust(results, game)
     del game                       # free the 1 GiB coupling matrix
     phase_lm(results)
+    phase_mamba2(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,14 @@
 //   adaseg_explore_launch  <- adaseg_explore (kernel.py:176, pallas_call :192)
 //   adaseg_anchor_launch   <- adaseg_anchor  (kernel.py:206, pallas_call :221)
 //   adaseg_finish_launch   <- adaseg_finish  (kernel.py:236, pallas_call :248)
+//   adaseg_update_launch   <- adaseg_update  (kernel.py:267, pallas_call :286)
 //
 // Bound on an H100: each kernel is an elementwise pass with per-worker sums,
 // so it is bound by HBM bandwidth. Per element of the worker-stacked (M, n)
 // leaf it must move: explore 12 B (read z*, m; write z_t), anchor 16 B
-// (read z*, z_t, g; write z~), finish 20 B (read z*, raw_t, raw_l; write
-// z_t, z~). At 3.35 TB/s that is 3.8 us, 5.0 us and 6.3 us for M=64,
-// n=16384. The arithmetic (a few flops per element) is far below the f32
+// (read z*, z_t, g; write z~), finish and update 20 B (read z*, raw_t,
+// raw_l or z*, m, g; write z_t, z~). At 3.35 TB/s that is 3.8 us, 5.0 us
+// and 6.3 us for M=64, n=16384. The arithmetic (a few flops per element) is far below the f32
 // rate.
 //
 // Design: one launch covers the whole fleet. The grid is (column tiles x
@@ -221,6 +222,55 @@ finish_kernel(const float* __restrict__ z, const float* __restrict__ raw_t,
   block_sum_store<1>(acc, t.partial(part, 1));
 }
 
+// ---------------------------------------------------------------------------
+// B4 update (one-shot, both oracles known): zt = z - eta*m, ztl = z - eta*g.
+// Box mode: both clipped; partials [sum (zt-z)^2 + (zt-ztl)^2, 0].
+// raw_norms mode (l2 pass 1): no clip; partials [sum zt^2, sum ztl^2].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+update_kernel(const float* __restrict__ z, const float* __restrict__ m,
+              const float* __restrict__ g, float* __restrict__ zt,
+              float* __restrict__ ztl, float* __restrict__ part, int n,
+              int tile, int vec, Step step, Box box, int raw_norms) {
+  const Tile t(n, tile);
+  const float eta = step.eta(blockIdx.y);
+  float acc[2] = {0.f, 0.f};
+  auto elem = [&](float zv, float mv, float gv, float& ot, float& ol) {
+    float a = zv - eta * mv;
+    float l = zv - eta * gv;
+    if (raw_norms) {
+      acc[0] += a * a;
+      acc[1] += l * l;
+    } else {
+      a = box(a);
+      l = box(l);
+      const float d1 = a - zv;
+      const float d2 = a - l;
+      acc[0] += d1 * d1 + d2 * d2;
+    }
+    ot = a;
+    ol = l;
+  };
+  if (vec) {
+    for (int j = t.start + 4 * threadIdx.x; j < t.end; j += 4 * kThreads) {
+      float zv[4], mv[4], gv[4], ot[4], ol[4];
+      load4(z + t.base + j, zv);
+      load4(m + t.base + j, mv);
+      load4(g + t.base + j, gv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) elem(zv[i], mv[i], gv[i], ot[i], ol[i]);
+      store4(zt + t.base + j, ot);
+      store4(ztl + t.base + j, ol);
+    }
+  } else {
+    for (int j = t.start + threadIdx.x; j < t.end; j += kThreads) {
+      elem(z[t.base + j], m[t.base + j], g[t.base + j], zt[t.base + j],
+           ztl[t.base + j]);
+    }
+  }
+  block_sum_store<2>(acc, t.partial(part, 2));
+}
+
 dim3 grid_of(int rows, int n, int tile) {
   return dim3(static_cast<unsigned>((n + tile - 1) / tile),
               static_cast<unsigned>(rows));
@@ -261,6 +311,19 @@ int adaseg_finish_launch(const float* z, const float* raw_t,
   finish_kernel<<<grid_of(rows, n, tile), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       z, raw_t, raw_l, s_t, s_l, zt, ztl, part, n, tile, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int adaseg_update_launch(const float* z, const float* m, const float* g,
+                         const float* sched, float* zt, float* ztl,
+                         float* part, int rows, int n, int tile, int vec,
+                         int fuse_eta, float g0_sq, float d_alpha,
+                         int has_box, float lo, float hi, int raw_norms,
+                         void* stream) {
+  update_kernel<<<grid_of(rows, n, tile), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      z, m, g, zt, ztl, part, n, tile, vec,
+      Step{sched, fuse_eta, g0_sq, d_alpha}, Box{has_box, lo, hi}, raw_norms);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -116,8 +116,8 @@ KERNELS: list["Kernel"] = []
 class Kernel:
     """One ``extern "C"`` launcher of a ``csrc`` library and its launch
     count. Arguments are passed as ctypes converts them: pointers and the
-    stream as Python ints (``c_void_p``), sizes as ``c_int``, scalars as
-    ``c_float``."""
+    stream as Python ints (``c_void_p``), sizes as ``c_int``, strides as
+    ``c_int64``, scalars as ``c_float``."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name = name
@@ -141,7 +141,7 @@ class Kernel:
         self.launches += 1
 
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -1,2 +1,2 @@
-"""Fused LocalAdaSEG extragradient kernels (B1-B3): plain twins, CUDA
+"""Fused LocalAdaSEG extragradient kernels (B1-B4): plain twins, CUDA
 wrappers and tree-level entry points."""

@@ -10,7 +10,11 @@ returns per-worker ``(M,)`` statistics:
 * :func:`adaseg_anchor`  — z̃ = Π_box(z* − η·g_t), with the (Z_t)²
   numerator ‖z_t − z*‖² + ‖z_t − z̃‖² and ‖g_t‖²;
 * :func:`adaseg_finish`  — l2 pass 2: z_t = s_t·raw_t, z̃ = s_l·raw_l, with
-  the (Z_t)² numerator.
+  the (Z_t)² numerator;
+* :func:`adaseg_update`  — the one-shot double update when both oracles
+  are known: z_t = Π_box(z* − η·m_t) and z̃ = Π_box(z* − η·g_t) with the
+  (Z_t)² numerator, or with ``raw_norms`` (l2 pass 1) both unprojected
+  with ‖z_t‖² and ‖z̃‖².
 
 η is given (``eta=``) or fused from the AdaGrad accumulator (``sum_sq=``,
 η = d_alpha/√(g0² + sum_sq) in-register), per worker.
@@ -25,7 +29,12 @@ import torch
 
 from .. import _build
 from .._build import F, I, P
-from .ref import adaseg_anchor_ref, adaseg_explore_ref, adaseg_finish_ref
+from .ref import (
+    adaseg_anchor_ref,
+    adaseg_explore_ref,
+    adaseg_finish_ref,
+    adaseg_update_ref,
+)
 
 #: elements of one worker's row per thread block
 TILE = 4096
@@ -40,6 +49,9 @@ ANCHOR = _build.Kernel(
 FINISH = _build.Kernel(
     "adaseg_finish", _SRC, "adaseg_finish_launch",
     [P, P, P, P, P, P, P, P, I, I, I, I, P])
+UPDATE = _build.Kernel(
+    "adaseg_update", _SRC, "adaseg_update_launch",
+    [P, P, P, P, P, P, P, I, I, I, I, I, F, F, I, F, F, I, P])
 
 
 def _sched(eta, sum_sq, rows, like):
@@ -116,3 +128,30 @@ def adaseg_finish(z_star, zt_raw, ztl_raw, scale_t, scale_tl):
            s_t.data_ptr(), s_l.data_ptr(), zt.data_ptr(), ztl.data_ptr(),
            part.data_ptr(), rows, n, TILE, vec, _build.stream_of(z_star))
     return zt, ztl, part.sum(dim=1)[:, 0]
+
+
+def adaseg_update(z_star, m_t, g_t, eta=None, *, sum_sq=None, g0=0.0,
+                  d_alpha=1.0, lo=None, hi=None, raw_norms=False):
+    """Returns ``(z_t, z_tilde, stat)``, ``stat`` the (Z_t)² numerator
+    ``(M,)``; with ``raw_norms`` (no projection) ``(raw_t, raw_l,
+    (‖raw_t‖², ‖raw_l‖²))``."""
+    if _build.on_cpu(z_star):
+        return adaseg_update_ref(z_star, m_t, g_t, eta, sum_sq=sum_sq, g0=g0,
+                                 d_alpha=d_alpha, lo=lo, hi=hi,
+                                 raw_norms=raw_norms)
+    if raw_norms and lo is not None:
+        raise ValueError("adaseg_update: raw_norms takes no box")
+    rows, n, tiles, vec = _layout("adaseg_update", z_star, m_t, g_t)
+    sched, fuse = _sched(eta, sum_sq, rows, z_star)
+    zt = torch.empty_like(z_star)
+    ztl = torch.empty_like(z_star)
+    part = torch.empty((rows, tiles, 2), dtype=torch.float32,
+                       device=z_star.device)
+    UPDATE(z_star.data_ptr(), m_t.data_ptr(), g_t.data_ptr(),
+           sched.data_ptr(), zt.data_ptr(), ztl.data_ptr(), part.data_ptr(),
+           rows, n, TILE, vec, fuse, float(g0) ** 2, float(d_alpha),
+           *_box_args(lo, hi), int(raw_norms), _build.stream_of(z_star))
+    acc = part.sum(dim=1)
+    if raw_norms:
+        return zt, ztl, (acc[:, 0], acc[:, 1])
+    return zt, ztl, acc[:, 0]

@@ -2,9 +2,11 @@
 ``repro.kernels.adaseg_update.ops``).
 
 ``core.adaseg.local_step(backend="fused")`` calls :func:`adaseg_tree_explore`
-and :func:`adaseg_tree_anchor`. The iterate is a tuple of worker-stacked
-leaves ``(M, ...)``; each leaf is flattened to ``(M, n)`` and handed to one
-kernel launch, and the per-worker statistics are summed over the leaves.
+and :func:`adaseg_tree_anchor`; :func:`adaseg_tree_update` is the one-shot
+double update for callers that know both oracles. The iterate is a tuple
+of worker-stacked leaves ``(M, ...)``; each leaf is flattened to ``(M, n)``
+and handed to one kernel launch, and the per-worker statistics are summed
+over the leaves.
 
 Projections are static specs, so the kernels fuse them:
 
@@ -26,13 +28,19 @@ Examples
 ...                                 proj=("box", -1.0, 1.0))
 >>> z_t[0].shape, m_sq.shape
 (torch.Size([1, 3]), torch.Size([1]))
+>>> z_t2, z_tl, z_sq = adaseg_tree_update(
+...     z, m, (0.1 * z[0],), sum_sq=torch.tensor([4.0]), g0=1.0,
+...     d_alpha=2.0, proj=("box", -1.0, 1.0))
+>>> bool(torch.equal(z_t2[0], z_t[0])), z_sq.shape
+(True, torch.Size([1]))
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.tree import per_worker
-from .kernel import adaseg_anchor, adaseg_explore, adaseg_finish
+from .kernel import adaseg_anchor, adaseg_explore, adaseg_finish, adaseg_update
+from .ref import _eta_ref
 
 
 def _norm_proj(proj):
@@ -127,3 +135,45 @@ def adaseg_tree_anchor(z_star, z_t, g_t, eta=None, *, sum_sq=None, g0=0.0,
         outs.append(ztl.reshape(z.shape))
         stats.append(stat)
     return tuple(outs), sum(stats), sum(gsqs)
+
+
+def adaseg_tree_update(z_star, m_t, g_t, eta=None, *, sum_sq=None, g0=0.0,
+                       d_alpha=1.0, proj=None):
+    """The one-shot double update z_t = Π(z* − η·M_t), z̃ = Π(z* − η·g_t)
+    over the iterate (box or identity in one pass per leaf; the l2 ball as
+    a raw pass and the finish pass).
+
+    Returns ``(z_t, z_tilde, z_sq)`` with, per worker,
+    z_sq = Σ_leaves (‖z_t − z*‖² + ‖z_t − z̃‖²) / (5η²).
+    """
+    spec = _norm_proj(proj)
+    kw = dict(eta=eta, sum_sq=sum_sq, g0=g0, d_alpha=d_alpha)
+    if spec[0] != "l2":
+        lo, hi = _box_bounds(spec)
+        zts, ztls, stats = [], [], []
+        for z, m, g in zip(z_star, m_t, g_t):
+            zt, ztl, stat = adaseg_update(_flat2(z), _flat2(m), _flat2(g),
+                                          lo=lo, hi=hi, **kw)
+            zts.append(zt.reshape(z.shape))
+            ztls.append(ztl.reshape(z.shape))
+            stats.append(stat)
+    else:
+        # Pass 1: raw candidates and their squared norms per leaf.
+        raws, norms_t, norms_l = [], [], []
+        for z, m, g in zip(z_star, m_t, g_t):
+            rt, rl, (nt, nl) = adaseg_update(_flat2(z), _flat2(m),
+                                             _flat2(g), raw_norms=True, **kw)
+            raws.append((rt, rl))
+            norms_t.append(nt)
+            norms_l.append(nl)
+        s_t = _ball_scale(spec[1], sum(norms_t))
+        s_l = _ball_scale(spec[1], sum(norms_l))
+        # Pass 2: scale onto the ball, with the (Z_t)² numerator.
+        zts, ztls, stats = [], [], []
+        for z, (rt, rl) in zip(z_star, raws):
+            zt, ztl, stat = adaseg_finish(_flat2(z), rt, rl, s_t, s_l)
+            zts.append(zt.reshape(z.shape))
+            ztls.append(ztl.reshape(z.shape))
+            stats.append(stat)
+    eta_val = _eta_ref(eta, sum_sq, g0, d_alpha)
+    return tuple(zts), tuple(ztls), sum(stats) / (5.0 * eta_val ** 2)

@@ -61,3 +61,24 @@ def adaseg_finish_ref(z_star, zt_raw, ztl_raw, scale_t, scale_tl):
     d1 = (z_t - z_star).float()
     d2 = (z_t - ztl).float()
     return z_t, ztl, _rowsum(d1 * d1 + d2 * d2)
+
+
+def adaseg_update_ref(z_star, m_t, g_t, eta=None, *, sum_sq=None, g0=0.0,
+                      d_alpha=1.0, lo=None, hi=None, raw_norms=False):
+    """One-shot double update: z_t = Π_box(z* − η·m_t), z̃ = Π_box(z* − η·g_t).
+    Returns ``(z_t, z̃, stat)`` with stat = ‖z_t − z*‖² + ‖z_t − z̃‖²; with
+    ``raw_norms`` (l2 pass 1, no projection) ``(z_t, z̃, (‖z_t‖², ‖z̃‖²))``."""
+    if raw_norms and lo is not None:
+        raise ValueError("adaseg_update: raw_norms takes no box")
+    eta = per_worker(_eta_ref(eta, sum_sq, g0, d_alpha), z_star)
+    z_t = z_star - eta * m_t
+    ztl = z_star - eta * g_t
+    if raw_norms:
+        zf, lf = z_t.float(), ztl.float()
+        return z_t, ztl, (_rowsum(zf * zf), _rowsum(lf * lf))
+    if lo is not None:
+        z_t = torch.clamp(z_t, lo, hi)
+        ztl = torch.clamp(ztl, lo, hi)
+    d1 = (z_t - z_star).float()
+    d2 = (z_t - ztl).float()
+    return z_t, ztl, _rowsum(d1 * d1 + d2 * d2)

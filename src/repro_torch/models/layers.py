@@ -1,6 +1,6 @@
-"""Primitive layers: RMSNorm, embeddings, RoPE (port of
-``repro.models.layers``; LayerNorm and the plain linear layer come with
-whisper, ROADMAP A19).
+"""Primitive layers: RMSNorm, embeddings, RoPE and the causal depthwise
+conv (port of ``repro.models.layers``; LayerNorm and the plain linear layer
+come with whisper, the conv's decode step with serving, ROADMAP A19).
 
 ``init_*`` take keys of shape ``(..., 2)`` and return parameter dicts whose
 leaves carry the keys' leading axes: ``(M, 2)`` keys give one parameter set
@@ -71,3 +71,22 @@ def apply_rope(x, positions, theta=10000.0):
 
 def softcap(x, cap):
     return cap * torch.tanh(x / cap)
+
+
+# --- causal depthwise conv (mamba2) -------------------------------------------
+
+def init_conv1d(key, channels, width):
+    return {"w": _normal(key, (width, channels), channels ** -0.5),
+            "b": torch.zeros(key.shape[:-1] + (channels,), device=key.device)}
+
+
+def apply_conv1d(p, x):
+    """Causal depthwise conv. x: (B, S, C) → (B, S, C). The reference's sum
+    of shifted products, in its order (no ``conv1d``: cuDNN would sum in
+    another order, in TF32 by default)."""
+    width, s = p["w"].shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    out = pad[:, 0:s, :] * p["w"][0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + s, :] * p["w"][i]
+    return out + p["b"]

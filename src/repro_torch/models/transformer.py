@@ -1,22 +1,24 @@
-"""Model assembly for decoder-only attention stacks (port of
-``repro.models.transformer``, training path).
+"""Model assembly for decoder-only stacks of attention and Mamba2 blocks
+(port of ``repro.models.transformer``, training path).
 
-Pre-norm residual blocks: attention (global or sliding-window) then a gated
-MLP. Layers are ``num_groups`` repetitions of a ``pattern_period``-long
-stage, and each period position's parameters are stacked with a leading
-group axis (``_init_stage``), the JAX package's layout, so parameters and
-checkpoints cross between the packages leaf for leaf. A plain loop over the
-group axis replaces the JAX package's rematerialized ``lax.scan``; the
-values are the same, only the memory schedule differs.
+Pre-norm residual blocks: a mixer, attention (global or sliding-window) or
+Mamba2's SSD (``kind == "ssm"``), then a gated MLP where the config has one
+(``d_ff > 0``; mamba2 has none). Layers are ``num_groups`` repetitions of a
+``pattern_period``-long stage, and each period position's parameters are
+stacked with a leading group axis (``_init_stage``), the JAX package's
+layout, so parameters and checkpoints cross between the packages leaf for
+leaf. A plain loop over the group axis replaces the JAX package's
+rematerialized ``lax.scan``; the values are the same, only the memory
+schedule differs.
 
 Parameters live in two forms: a nested dict for one model (what
 :func:`forward` and :func:`loss_fn` take) and, on the engine side, a tuple
 of worker-stacked leaves in ``jax.tree.leaves`` order (dict keys sorted,
 lists in order): :func:`param_leaves` and :func:`param_tree` convert.
 
-MoE, Mamba2 and RG-LRU layers are ported with the other mixers (ROADMAP
-A18); encoder-decoder and cross-attention stacks, the KV cache and decode
-with serving (A19). Their configs raise ``NotImplementedError``.
+MoE and RG-LRU layers are ported with the other mixers (ROADMAP A18);
+encoder-decoder and cross-attention stacks, the KV and SSM caches and
+decode with serving (A19). Their configs raise ``NotImplementedError``.
 
 Examples
 --------
@@ -51,6 +53,7 @@ from .layers import (
     split,
 )
 from .mlp import apply_mlp, init_mlp
+from .ssm import apply_ssm, init_ssm
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -64,7 +67,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
         raise NotImplementedError(f"{cfg.name}: the port computes in float32")
     for kind in cfg.layer_kinds():
-        if kind["kind"] != "attn" or kind["moe"]:
+        if kind["moe"] or kind["kind"] == "rglru":
             raise NotImplementedError(
                 f"{cfg.name}: {'moe' if kind['moe'] else kind['kind']} "
                 "layers are ported with the other mixers (ROADMAP A18)")
@@ -84,8 +87,8 @@ def apply_norm(cfg: ArchConfig, p, x):
 
 def _init_block(key, cfg: ArchConfig, kind: dict):
     keys = split(key, 8)
-    p = {"pre_norm": init_norm(key, cfg),
-         "mixer": init_attention(keys[0], cfg)}
+    mixer = init_ssm if kind["kind"] == "ssm" else init_attention
+    p = {"pre_norm": init_norm(key, cfg), "mixer": mixer(keys[0], cfg)}
     if cfg.d_ff > 0:
         p["mlp_norm"] = init_norm(key, cfg)
         p["mlp"] = init_mlp(keys[2], cfg)
@@ -153,8 +156,11 @@ def param_tree(leaves, cfg: ArchConfig):
 
 def _block_forward(lp, cfg: ArchConfig, kind, x, positions):
     h = apply_norm(cfg, lp["pre_norm"], x)
-    out = apply_attention(lp["mixer"], cfg, h, positions,
-                          window=kind["window"])
+    if kind["kind"] == "ssm":
+        out = apply_ssm(lp["mixer"], cfg, h)
+    else:
+        out = apply_attention(lp["mixer"], cfg, h, positions,
+                              window=kind["window"])
     if cfg.post_norm:
         out = apply_norm(cfg, lp["mixer_post"], out)
     x = x + out

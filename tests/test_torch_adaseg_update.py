@@ -187,3 +187,109 @@ def test_wrappers_refuse_other_devices_and_bad_specs():
     with pytest.raises(ValueError):
         tops.adaseg_tree_explore((torch.zeros(2, 4),), (torch.zeros(2, 4),),
                                  eta=0.1, proj=("simplex",))
+
+
+# ---------------------------------------------------------------------------
+# B4: the one-shot double update
+# ---------------------------------------------------------------------------
+
+UPDATE_MODES = [(None, False), ((-1.0, 1.0), False), ((0.25, 1.0), False),
+                (None, True)]
+
+
+@pytest.mark.parametrize("mode", ["eta", "sum_sq"])
+@pytest.mark.parametrize("box,raw_norms", UPDATE_MODES,
+                         ids=["identity", "box", "box-above-zero", "raw"])
+def test_update_matches_jax(mode, box, raw_norms):
+    """Per worker against the JAX reference and the Pallas kernel (ragged
+    n=300 at block 128); in raw_norms mode against the kernel alone, whose
+    reference has no such mode, and the norms against a direct sum."""
+    x = _inputs(7)
+    lo, hi = box or (None, None)
+    got = tk.adaseg_update(_t(x["z"]), _t(x["m"]), _t(x["g"]), g0=G0,
+                           d_alpha=D_ALPHA, lo=lo, hi=hi,
+                           raw_norms=raw_norms, **_eta_kw(x, mode))
+    for m in range(M):
+        kw = dict(g0=G0, d_alpha=D_ALPHA, lo=lo, hi=hi, **_eta_kw(x, mode, m))
+        args = (jnp.asarray(x["z"][m]), jnp.asarray(x["m"][m]),
+                jnp.asarray(x["g"][m]))
+        want_ker = jk.adaseg_update(*args, block=BLOCK, interpret=True,
+                                    raw_norms=raw_norms, **kw)
+        wants = [want_ker]
+        if not raw_norms:
+            wants.append(jref.adaseg_update_ref(*args, **kw))
+        for want in wants:
+            _close(got[0][m], want[0])
+            _close(got[1][m], want[1])
+            if raw_norms:
+                _close(got[2][0][m], want[2][0])
+                _close(got[2][1][m], want[2][1])
+            else:
+                _close(got[2][m], want[2])
+    if raw_norms:
+        for v, s in zip(got[:2], got[2]):
+            np.testing.assert_allclose(
+                s.numpy(), (v.numpy().astype(np.float64) ** 2).sum(1),
+                rtol=1e-6)
+
+
+def test_update_pad_mask_box_above_zero():
+    """The JAX package's pad-mask case (n=1000 pads 24 lanes at block 128,
+    box(0.5, 1)): the (Z_t)² numerator is the direct sum over the n real
+    lanes, as the Pallas kernel's masked one is."""
+    x = _inputs(8, n=1000)
+    z_t, ztl, stat = tk.adaseg_update(_t(x["z"]), _t(x["m"]), _t(x["g"]),
+                                      eta=0.3, lo=0.5, hi=1.0)
+    zt64, ztl64 = z_t.numpy().astype(np.float64), ztl.numpy().astype(np.float64)
+    want = ((zt64 - x["z"]) ** 2 + (zt64 - ztl64) ** 2).sum(axis=1)
+    np.testing.assert_allclose(stat.numpy(), want, rtol=1e-6)
+    for m in range(M):
+        args = (jnp.asarray(x["z"][m]), jnp.asarray(x["m"][m]),
+                jnp.asarray(x["g"][m]))
+        want_ker = jk.adaseg_update(*args, 0.3, lo=0.5, hi=1.0, block=128,
+                                    interpret=True)
+        _close(z_t[m], want_ker[0])
+        _close(stat[m], want_ker[2])
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("mode", ["eta", "sum_sq"])
+def test_tree_update_matches_jax(spec, mode):
+    """``adaseg_tree_update`` per worker against the JAX package's (its
+    kernels in interpret mode): the iterates at TOL, z_sq = stat / (5η²)
+    at rtol 1e-5 (η formed on each side: C7)."""
+    x = _inputs(9)
+    tr = _tree(x, "z", "m", "g")
+    tt = {k: tuple(_t(v) for v in leaves) for k, leaves in tr.items()}
+    z_t, ztl, z_sq = tops.adaseg_tree_update(
+        tt["z"], tt["m"], tt["g"], g0=G0, d_alpha=D_ALPHA, proj=spec,
+        **_eta_kw(x, mode))
+    for m in range(M):
+        row = {k: tuple(jnp.asarray(v[m]) for v in leaves)
+               for k, leaves in tr.items()}
+        jz_t, jztl, jz_sq = jops.adaseg_tree_update(
+            row["z"], row["m"], row["g"], g0=G0, d_alpha=D_ALPHA, proj=spec,
+            **_eta_kw(x, mode, m))
+        for a, b in zip(z_t, jz_t):
+            _close(a[m], b)
+        for a, b in zip(ztl, jztl):
+            _close(a[m], b)
+        np.testing.assert_allclose(float(z_sq[m]), float(jz_sq), rtol=1e-5)
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: "-".join(map(str, s)))
+def test_one_shot_is_explore_then_anchor(spec):
+    """On the same η the one-shot update gives the step path's explore then
+    anchor: the same iterates and the same (Z_t)² numerator."""
+    x = _inputs(10)
+    tt = {k: tuple(_t(v) for v in leaves)
+          for k, leaves in _tree(x, "z", "m", "g").items()}
+    kw = dict(sum_sq=_t(x["sum_sq"]), g0=G0, d_alpha=D_ALPHA, proj=spec)
+    z_t, ztl, z_sq = tops.adaseg_tree_update(tt["z"], tt["m"], tt["g"], **kw)
+    e_t, _ = tops.adaseg_tree_explore(tt["z"], tt["m"], **kw)
+    e_tl, stat, _ = tops.adaseg_tree_anchor(tt["z"], e_t, tt["g"], **kw)
+    for a, b in zip(z_t + ztl, e_t + e_tl):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    eta = D_ALPHA / torch.sqrt(G0 ** 2 + _t(x["sum_sq"]))
+    torch.testing.assert_close(z_sq, stat / (5.0 * eta ** 2), rtol=1e-5,
+                               atol=0)

@@ -4,9 +4,10 @@ transformer's initial parameters, loss and gradients (reference attention
 and the flash route), ``make_ps_engine`` end to end, the ``ModelWorker``
 fingerprint, and checkpoints across architectures and packages.
 
-Four configs: ``tiny_lm_config()``, a narrow qwen2-shaped one (QKV bias,
+Five configs: ``tiny_lm_config()``, a narrow qwen2-shaped one (QKV bias,
 tied embeddings, GQA 14:2, head_dim 8, rope θ 1e6, 2 layers, vocab 256),
-and narrow gemma2- and qwen3-shaped ones for their branches.
+narrow gemma2- and qwen3-shaped ones for their branches, and a narrow
+mamba2-shaped one (SSD blocks, no MLP).
 Nothing runs at full width. Tolerances are stated at each assertion; the
 two packages differ in f32 sum order and in ``erfinv``/``log`` ulps
 (ROADMAP C3), never in the tokens drawn.
@@ -72,12 +73,24 @@ QWEN3_NARROW = jconfigs.ArchConfig(
     num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
     qk_norm=True, rope_theta=1_000_000.0, max_seq_len=64,
 )
+# mamba2's branch: SSD blocks (8 heads of 16, state 16, chunk 8, so SEQ
+# spans two chunks), the causal conv, no MLP, tied embeddings.
+MAMBA2_NARROW = jconfigs.ArchConfig(
+    name="mamba2-narrow", arch_type="ssm", num_layers=2, d_model=64,
+    num_heads=1, num_kv_heads=1, d_ff=0, vocab_size=256, layer_pattern="ssm",
+    ssm_state=16, ssm_head_dim=16, ssm_expand=2, ssm_conv_width=4,
+    ssm_chunk=8, tie_embeddings=True, norm_eps=1e-5,
+)
 JAX_CONFIGS = {"tiny": jax_tiny(), "qwen2_narrow": QWEN2_NARROW,
-               "gemma2_narrow": GEMMA2_NARROW, "qwen3_narrow": QWEN3_NARROW}
+               "gemma2_narrow": GEMMA2_NARROW, "qwen3_narrow": QWEN3_NARROW,
+               "mamba2_narrow": MAMBA2_NARROW}
 
 
-def _jax_cfg(name, attn_backend="reference"):
-    return dataclasses.replace(JAX_CONFIGS[name], attn_backend=attn_backend)
+def _jax_cfg(name, backend="reference"):
+    """The config with its mixers' backend: the flash kernel for attention,
+    the SSD scan kernel for Mamba2 (``"pallas"``), or plain math."""
+    return dataclasses.replace(JAX_CONFIGS[name], attn_backend=backend,
+                               ssm_backend=backend)
 
 
 def _port_cfg(jcfg) -> ArchConfig:
@@ -121,13 +134,26 @@ def test_validate_refuses_what_the_jax_package_refuses():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-370m", "A18"), ("granite-moe-1b-a400m", "A18"),
-    ("recurrentgemma-9b", "A18"), ("whisper-small", "A19"),
-    ("llama-3.2-vision-11b", "A19")])
+    ("granite-moe-1b-a400m", "A18"), ("recurrentgemma-9b", "A18"),
+    ("whisper-small", "A19"), ("llama-3.2-vision-11b", "A19")])
 def test_other_layer_kinds_wait_for_their_slice(arch, item):
     cfg = tconfigs.smoke_config(arch)
     with pytest.raises(NotImplementedError, match=item):
         make_lm_problem(cfg, batch=1, seq=4)
+
+
+@pytest.mark.parametrize("ssm_backend", ["reference", "pallas"])
+def test_mamba2_smoke_config_builds_a_problem(ssm_backend):
+    """mamba2's SSD blocks are ported: its smoke config initializes, draws
+    a batch and takes a finite gradient on both backends."""
+    cfg = dataclasses.replace(tconfigs.smoke_config("mamba2-370m"),
+                              ssm_backend=ssm_backend)
+    prob = make_lm_problem(cfg, batch=1, seq=2 * cfg.ssm_chunk)
+    keys = torch.stack([_key(1), _key(2)])
+    z = prob.init(keys)
+    grads = prob.oracle(z, prob.sample(keys))
+    assert [tuple(g.shape) for g in grads] == [tuple(v.shape) for v in z]
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_other_dtypes_are_refused():
@@ -193,12 +219,12 @@ def test_init_model_matches_jax_leaf_for_leaf(name):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("attn_backend", ["reference", "pallas"])
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
 @pytest.mark.parametrize("name", list(JAX_CONFIGS))
-def test_loss_and_gradients_match_jax(name, attn_backend):
+def test_loss_and_gradients_match_jax(name, backend):
     """From the same weights and batch: the loss at rtol 1e-5, every
     gradient leaf at rtol 1e-4 / atol 1e-5 (f32 sum order)."""
-    jcfg = _jax_cfg(name, attn_backend)
+    jcfg = _jax_cfg(name, backend)
     cfg = _port_cfg(jcfg)
     jparams = jax_init_model(jax.random.PRNGKey(5), jcfg)[0]
     jbatch = jax_make_batch(jax.random.PRNGKey(6), jcfg, BATCH, SEQ)
@@ -247,6 +273,29 @@ def test_params_round_trip_through_numpy():
                                   device="cpu")
 
 
+def test_mamba2_params_round_trip_through_numpy():
+    """mamba2's 11 leaves, in ``jax.tree.leaves`` order, both ways."""
+    jcfg = _jax_cfg("mamba2_narrow")
+    cfg = _port_cfg(jcfg)
+    jparams = jax.tree.map(np.asarray,
+                           jax_init_model(jax.random.PRNGKey(2), jcfg)[0])
+    leaves = interop.params_from_numpy(jparams, cfg, device="cpu")
+    names = [".".join(k.key for k in path if hasattr(k, "key"))
+             for path, _ in jax.tree_util.tree_flatten_with_path(jparams)[0]]
+    assert names == [
+        "embed.table", "final_norm.scale", "stages.mixer.a_log",
+        "stages.mixer.conv.b", "stages.mixer.conv.w", "stages.mixer.d_skip",
+        "stages.mixer.dt_bias", "stages.mixer.in_proj",
+        "stages.mixer.norm.scale", "stages.mixer.out_proj",
+        "stages.pre_norm.scale"]
+    for a, b in zip(leaves, jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    back = interop.params_to_numpy(leaves, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(jparams)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # make_ps_engine end to end
 # ---------------------------------------------------------------------------
@@ -263,25 +312,34 @@ def _port_engine(backend, *, cfg=None, rounds=R):
                           codec_backend=backend, device="cpu")
 
 
-def _jax_engine(backend, rounds=R):
-    plan = JaxPlan(cfg=_jax_cfg("qwen2_narrow", "pallas"),
+def _jax_engine(backend, rounds=R, name="qwen2_narrow"):
+    plan = JaxPlan(cfg=_jax_cfg(name, "pallas"),
                    adaseg=JaxAdaSEG(**ADASEG), **_plan_kw())
     return jax_make_ps_engine(plan, jax.random.PRNGKey(0), rounds=rounds,
                               codec_backend=backend)
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
+def _jax_runs(name):
     """The JAX engine's per-round eval losses and z̄ for each sync backend
-    (its worker takes the reference step; the Pallas flash kernel runs in
+    (its worker takes the reference step; the Pallas kernels run in
     interpret mode)."""
     out = {}
     for backend in ("reference", "fused"):
-        eng = _jax_engine(backend)
+        eng = _jax_engine(backend, name=name)
         z = eng.run()
         out[backend] = ([r.residual for r in eng.trace.rounds],
                         _jax_leaves(z))
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return _jax_runs("qwen2_narrow")
+
+
+@pytest.fixture(scope="module")
+def jax_mamba2_runs():
+    return _jax_runs("mamba2_narrow")
 
 
 @pytest.mark.parametrize("backend", ["reference", "fused"])
@@ -300,6 +358,23 @@ def test_make_ps_engine_matches_jax(jax_runs, backend):
     assert eng.trace.meta["problem"] == f"lm[qwen2-narrow]x{BATCH}x{SEQ}"
 
 
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_make_ps_engine_matches_jax_on_mamba2(jax_mamba2_runs, backend):
+    """M=2, K=2, R=2 on the mamba2-shaped config with the SSD scan route:
+    the eval-loss trace at rtol 1e-5, z̄ at rtol 1e-4 / atol 1e-5."""
+    want_trace, want_z = jax_mamba2_runs[backend]
+    eng = _port_engine(backend,
+                       cfg=_port_cfg(_jax_cfg("mamba2_narrow", "pallas")))
+    z = eng.run()
+    trace = [r.residual for r in eng.trace.rounds]
+    assert len(trace) == R and all(np.isfinite(trace))
+    np.testing.assert_allclose(trace, want_trace, rtol=TRACE_RTOL)
+    assert len(z) == len(want_z) == 11
+    for g, w in zip(z, want_z):
+        np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
+    assert eng.trace.meta["problem"] == f"lm[mamba2-narrow]x{BATCH}x{SEQ}"
+
+
 def test_make_ps_engine_refuses_later_slices():
     cfg = _port_cfg(_jax_cfg("tiny"))
     plan = TrainPlan(cfg=cfg, adaseg=AdaSEGConfig(**ADASEG), **_plan_kw())
@@ -314,7 +389,7 @@ def test_make_ps_engine_refuses_later_slices():
             make_ps_engine(plan, key, rounds=1)
 
 
-@pytest.mark.parametrize("arch", ["tiny-lm", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["tiny-lm", "qwen2-0.5b", "mamba2-370m"])
 def test_model_worker_fingerprint_equals_jax(arch):
     jw = JaxModelWorker(JaxAdaSEG(**ADASEG), arch=arch)
     tw = ModelWorker(AdaSEGConfig(**ADASEG), arch=arch)

@@ -17,6 +17,7 @@ from repro_torch.core import AdaSEGConfig, run_local_adaseg
 from repro_torch.kernels import _build
 from repro_torch.kernels.adaseg_update import kernel as _adaseg_kernels  # noqa: F401
 from repro_torch.kernels.flash_attention import kernel as _flash_kernel  # noqa: F401
+from repro_torch.kernels.ssd_scan import kernel as _ssd_kernel  # noqa: F401
 from repro_torch.kernels.sync_compress import kernel as _merge_kernel  # noqa: F401
 from repro_torch.problems import make_bilinear_game
 from repro_torch.ps import PSConfig, PSEngine
@@ -59,7 +60,8 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.checkpoint, "
             "repro_torch.kernels.adaseg_update.ops, "
             "repro_torch.kernels.sync_compress.ops, "
-            "repro_torch.kernels.flash_attention.kernel, repro_torch.configs, "
+            "repro_torch.kernels.flash_attention.kernel, "
+            "repro_torch.kernels.ssd_scan.kernel, repro_torch.configs, "
             "repro_torch.data, repro_torch.models, repro_torch.launch; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -100,9 +102,10 @@ def test_bindings_match_the_c_entry_points():
     launcher (a missing one would shift every later argument)."""
     names = {k.name for k in _build.KERNELS}
     assert names == {"adaseg_explore", "adaseg_anchor", "adaseg_finish",
-                     "merge_stacked", "uplink_stats", "quantize_uplink",
-                     "eff_uplink", "mask_uplink", "trimmed_merge_stacked",
-                     "outer_apply", "flash_attention"}
+                     "adaseg_update", "merge_stacked", "uplink_stats",
+                     "quantize_uplink", "eff_uplink", "mask_uplink",
+                     "trimmed_merge_stacked", "outer_apply",
+                     "flash_attention", "ssd_scan"}
     for k in _build.KERNELS:
         assert (PKG / "csrc" / k.source).is_file()
         assert _c_params(k.source, k.symbol) == len(k.argtypes), k.name
@@ -156,6 +159,8 @@ DOCTEST_MODULES = [
     "repro_torch.checkpoint.serialize", "repro_torch.data.synthetic",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.ssd_scan.kernel", "repro_torch.kernels.ssd_scan.ref",
+    "repro_torch.models.ssm",
     "repro_torch.models.transformer", "repro_torch.models.problem",
     "repro_torch.models.worker", "repro_torch.launch.train",
 ]
