@@ -19,7 +19,12 @@ nothing of JAX. Phases, one JSON line each:
    well as fused. The four codec uplink kernels
    (scale, quantize, eff, mask) must match their plain versions exactly,
    with and without aliveness (one dead worker); the merge kernel is also
-   held and timed on its gated branch (``recv``/``old``, ``kernel_case``);
+   held and timed on its gated branch (``recv``/``old``, ``kernel_case``).
+   Where one PyTorch call computes a kernel's function (the merge's
+   ungated broadcast: ``torch.matmul(w.expand(M, M), z)``; eff:
+   ``torch.addcmul``), it is timed beside the kernel as a yardstick only,
+   into a fresh output (``library_ms``) and into the kernel's own
+   preallocated outputs (``library_same_out_ms``);
 4. main path — the bilinear game at n=16384 (``game``: with the oracle
    GEMM and the noise draw timed alone) through ``PSEngine`` with M=64
    workers, K=50 local steps, R=5 rounds, fused step and merge kernels
@@ -60,14 +65,20 @@ nothing of JAX. Phases, one JSON line each:
    beside its plain version and ``scaled_dot_product_attention`` (f32, no
    TF32; a yardstick only, the port never calls it);
 9. ssd_kernels — the SSD scan kernel (B13) against its plain version (the
-   kernel's chunked arithmetic) within TOL_SSD and against the sequential
+   kernels' chunked arithmetic) within TOL_SSD and against the sequential
    recurrence within TOL_SSD_ORACLE (max abs error over the largest |y|),
    reruns bit-identical: the mamba2 path's shape (B=1, L=1024, H=32, P=64,
    N=128, chunk 128, mamba2's a), chunk 64, B=2 (b and c shared by the
    heads of each batch row) and the smoke config's P=16, N=16, chunk 8,
    each also on x, b and c as strided views of one packed tensor, as the
-   model hands them in (bit-identical to the contiguous call);
-   timed beside its plain version (no PyTorch call computes the scan);
+   model hands them in, and of one packed a float off 16-byte alignment
+   (4-byte copies), both bit-identical to the contiguous call; each of the
+   three launches the call makes (``cb_state``: C·Bᵀ, the prefix sums and
+   the chunk states; ``state_pass``; ``chunk_scan``) is held against the
+   plain versions of its phases (``ref.py``) within TOL_SSD_PHASE, fed
+   what the earlier launches wrote, and timed alone (``kernel_phase``);
+   the whole call is timed beside its plain version, the Pallas kernel's
+   chunk loop (no PyTorch call computes the scan);
 10. lm — qwen2-0.5b at full width (24 layers, d_model 896, vocab 151936)
    with the flash kernel on, trained through the port's ``make_ps_engine``
    with M=4 workers, per-worker batch 1 × 1024 tokens, K=4, R=2, on the
@@ -189,6 +200,10 @@ SSD_VARIANTS = {
 # 128-term dots), and against the sequential recurrence
 TOL_SSD = 5e-5
 TOL_SSD_ORACLE = 2e-4
+# each launch of B13 against the plain versions of its phases fed the same
+# inputs (what the earlier launches wrote): max abs error over the
+# largest |entry|; f32 sums of at most 256 terms in another order
+TOL_SSD_PHASE = 1e-5
 MAMBA_ARCH = "mamba2-370m"
 
 
@@ -269,6 +284,18 @@ def max_abs(a, b) -> float:
 
 def rel_err(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def library_times(case, sets):
+    """The yardstick PyTorch call of a kernel case (``case["library"]``)
+    over ``sets``: into a fresh output, as a caller would make it (the
+    ``library_ms`` of the kernels line), and into the kernel's own
+    preallocated outputs (``library_same_out_ms``, an extra field).
+    Returns ``(library_ms, fields)``."""
+    return graph_ms([lambda x=x: case["library"](x) for x in sets]), dict(
+        library=case["library_name"],
+        library_same_out_ms=graph_ms(
+            [lambda x=x: case["library"](x, x["out"]) for x in sets]))
 
 
 def phase_device():
@@ -415,7 +442,12 @@ def phase_kernels():
                 *ptr(x, "z", "w"), None, None, *ptr(x, "out"), M, N, 0, 1,
                 stream(x)),
             kernel=sk.merge_stacked,
-            plain=lambda z, w: sr.merge_ref(z, w)),
+            plain=lambda z, w: sr.merge_ref(z, w),
+            # every row of w.expand(M, M) is w: row m of the product is
+            # sum_i w_i z[i], the ungated merge broadcast to each row
+            library=lambda x, out=None: torch.matmul(
+                x["w"].expand(M, M), x["z"], out=out),
+            library_name="torch.matmul(w.expand(M, M), z)"),
     }
 
     # Timing inputs: 12 sets of the main path's shape, cycled so the bytes
@@ -454,14 +486,17 @@ def phase_kernels():
         it = iter(range(10 ** 9))
         wrapper_ms = time_ms(
             lambda: c["run"](sets[next(it) % len(sets)], box, c["kernel"]))
+        library_ms, extra = None, {}
+        if "library" in c:
+            library_ms, extra = library_times(c, sets)
         b_ms, b_by = bound(c["bytes"], c["flops"])
         results[name] = dict(
             name=name, route="cuda", source=c["src"], replaces=c["replaces"],
             launches=0, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         )
         emit("kernel", **results[name], wrapper_eager_ms=wrapper_ms,
-             gb_per_s=c["bytes"] / (ms * 1e-3) / 1e9)
+             gb_per_s=c["bytes"] / (ms * 1e-3) / 1e9, **extra)
     return results
 
 
@@ -552,8 +587,9 @@ def phase_codec_kernels(results):
             launch=lambda x: sk.EFF(
                 *(x[k].data_ptr() for k in ("z", "w", "ef", "out")),
                 M, N, sk.TILE, 1, stream(x)),
-            library=lambda x: torch.addcmul(x["ef"], x["w"][:, None],
-                                            x["z"])),
+            library=lambda x, out=None: torch.addcmul(
+                x["ef"], x["w"][:, None], x["z"], out=out),
+            library_name="torch.addcmul(ef, w[:, None], z)"),
         "mask_uplink": dict(
             replaces="src/repro/kernels/sync_compress/kernel.py:386",
             gated=(False, True),
@@ -590,8 +626,9 @@ def phase_codec_kernels(results):
                           "version (must be 0)")
         ms = graph_ms([lambda x=x: c["launch"](x) for x in sets * 2])
         plain_ms = graph_ms([lambda x=x: c["plain"](x, True) for x in sets])
-        library_ms = (graph_ms([lambda x=x: c["library"](x) for x in sets])
-                      if "library" in c else None)
+        library_ms, extra = None, {}
+        if "library" in c:
+            library_ms, extra = library_times(c, sets)
         b_ms, b_by = bound(c["bytes"], c["flops"], c["int_ops"])
         results[name] = dict(
             name=name, route="cuda", source=src, replaces=c["replaces"],
@@ -599,7 +636,7 @@ def phase_codec_kernels(results):
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         )
         emit("kernel", **results[name],
-             gb_per_s=c["bytes"] / (ms * 1e-3) / 1e9)
+             gb_per_s=c["bytes"] / (ms * 1e-3) / 1e9, **extra)
 
     # B5's gated branch as the codec path calls it: the w-scaled messages,
     # unit weights, rows with recv = 0 keep old (sum order differs from
@@ -1229,9 +1266,10 @@ def phase_flash_kernels(results):
 
 
 def phase_ssd_kernels(results):
-    """The SSD scan kernel (B13) against its plain version (the kernel's
-    chunked arithmetic) and the sequential recurrence, at the mamba2 path's
-    shape and three variants; timed beside the plain version."""
+    """The SSD scan kernel (B13) against its plain version (the Pallas
+    kernel's chunk loop) and the sequential recurrence, at the mamba2 path's
+    shape and three variants; each of its three launches against the plain
+    versions of its phases; timed beside the plain version."""
     import torch
     import torch.nn.functional as tnf
 
@@ -1251,6 +1289,50 @@ def phase_ssd_kernels(results):
     def rel(got, want):
         return max_abs(got, want) / float(want.abs().max())
 
+    def views(args, lead):
+        """x, b and c as views of one packed row of ``lead`` + H·P + 2N
+        floats, as the model's split of its conv output hands them in."""
+        x, dt, a, b, c = args
+        bsz, l, h, p = x.shape
+        n = b.shape[-1]
+        packed = torch.cat([torch.zeros(bsz, l, lead, device=dev),
+                            x.reshape(bsz, l, h * p), b, c], dim=-1)
+        _, xv, bv, cv = torch.split(packed, [lead, h * p, n, n], dim=-1)
+        return xv.reshape(bsz, l, h, p), dt, a, bv, cv
+
+    def check_phases(label, args, q):
+        """Each launch against the plain versions of its phases, fed what
+        the earlier launches wrote; returns the errors."""
+        x, dt, a, b, c = args
+        p = x.shape[-1]
+        out = sk.ssd_scan_phases(*args, chunk=q, phases=("cb_state",))
+        torch.cuda.synchronize()
+        cum = out.cum.clone()
+        errs = dict(cb_cum=rel(cum, sr.chunk_cum_ref(dt, a, q)),
+                    cb_gram=rel(out.gram(q), sr.chunk_gram_ref(b, c, q)))
+        own = sr.chunk_states_ref(x, dt, b, cum)
+        nc = cum.shape[1]
+        entering = torch.zeros_like(own)
+        if nc > 1:
+            states = out.state_slots(p).clone()
+            errs["chunk_state"] = rel(states, own[:, :-1])
+            sk.ssd_scan_phases(*args, chunk=q, phases=("state_pass",),
+                               out=out)
+            torch.cuda.synchronize()
+            entering[:, 1:] = out.state_slots(p)
+            want = sr.state_pass_ref(
+                torch.cat([states, own[:, -1:]], dim=1), cum)
+            errs["state_pass"] = rel(entering, want)
+        sk.ssd_scan_phases(*args, chunk=q, phases=("chunk_scan",), out=out)
+        torch.cuda.synchronize()
+        errs["chunk_scan"] = rel(out.y, sr.chunk_scan_ref(
+            x, dt, c, out.gram(q), cum, entering))
+        for phase, err in errs.items():
+            check(err <= TOL_SSD_PHASE,
+                  f"ssd_scan {label} {phase}: {err} of the largest entry "
+                  "off the plain version of the phase")
+        return errs
+
     err_all = 0.0
     for label, var in SSD_VARIANTS.items():
         shape = {**SSD_SHAPE, **var}
@@ -1267,21 +1349,20 @@ def phase_ssd_kernels(results):
                     plain_oracle_rel_err=rel(want, oracle))
         check(bool(torch.isfinite(got).all()), f"ssd_scan {label}: not finite")
         check(torch.equal(got, again), f"ssd_scan {label}: reruns differ")
-        # x, b and c as the model hands them in: views of one packed row of
-        # H·P + 2N floats, read through their strides
-        packed = torch.cat([args[0].reshape(b, l, h * p), args[3], args[4]],
-                           dim=-1)
-        xv, bv, cv = torch.split(packed, [h * p, n, n], dim=-1)
-        strided = sk.ssd_scan(xv.reshape(b, l, h, p), args[1], args[2], bv,
-                              cv, chunk=q)
-        check(torch.equal(strided, got),
-              f"ssd_scan {label}: strided views give another result")
+        # x, b and c as the model hands them in (lead 0), and a float off
+        # 16-byte alignment (every copy 4 bytes at a time)
+        for lead in (0, 1):
+            strided = sk.ssd_scan(*views(args, lead), chunk=q)
+            check(torch.equal(strided, got),
+                  f"ssd_scan {label}: strided views (lead {lead}) give "
+                  "another result")
         check(errs["rel_err"] <= TOL_SSD,
               f"ssd_scan {label}: {errs['rel_err']} of max |y| off the plain "
               "version")
         check(errs["oracle_rel_err"] <= TOL_SSD_ORACLE,
               f"ssd_scan {label}: {errs['oracle_rel_err']} of max |y| off "
               "the recurrence")
+        phase_errs = check_phases(label, args, q)
         # The least work of the function over the Q(Q+1)/2 visible pairs
         # of each chunk: C.B^T (N per pair) once per (batch, chunk), since
         # every head shares B and C; per head L.xdt (P per pair), C.S and
@@ -1297,6 +1378,18 @@ def phase_ssd_kernels(results):
                        for x in sets * 2])
         plain_ms = graph_ms([lambda x=x: sr.ssd_scan_ref(*x, chunk=q)
                              for x in sets])
+        # each launch of the call alone, on scratch the whole call filled
+        outs = [sk.ssd_scan_phases(*x, chunk=q) for x in sets]
+        phase_ms = {
+            name: graph_ms([
+                lambda x=x, o=o, name=name: sk.ssd_scan_phases(
+                    *x, chunk=q, phases=(name,), out=o)
+                for x, o in zip(sets * 2, outs * 2)])
+            for name in sk.PHASES}
+        emit("kernel_phase", name="ssd_scan", variant=label,
+             us={k: v * 1e3 for k, v in phase_ms.items()},
+             launches_sum_us=sum(phase_ms.values()) * 1e3,
+             call_us=ms * 1e3, max_rel_err=phase_errs)
         b_ms, b_by = bound(nbytes, flops)
         row = dict(name="ssd_scan", route="cuda",
                    source="src/repro_torch/csrc/ssd_scan.cu",

@@ -11,8 +11,16 @@
   carried across chunks, batched over batch and heads. The card holds the
   CUDA kernel against it, and the kernel's wrapper runs it for CPU tensors.
 
+* :func:`ssd_scan_phases_ref` is the state-passing form the CUDA kernels
+  compute, the composition of their phases' plain versions:
+  :func:`chunk_cum_ref` and :func:`chunk_gram_ref` (cb),
+  :func:`chunk_states_ref`, :func:`state_pass_ref` and
+  :func:`chunk_scan_ref`. The card holds each CUDA launch against the plain
+  versions of its phases.
+
 Shapes: x (B, L, H, P); dt (B, L, H), post-softplus; a (H,), negative;
 b, c (B, L, N), one group shared by every head. Returns y (B, L, H, P).
+Per chunk, C = L/Q chunks of Q rows.
 
 >>> import torch
 >>> g = torch.Generator().manual_seed(0)
@@ -43,6 +51,68 @@ def ssd_ref(x, dt, a, b, c):
         state = state * decay[..., None, None] + upd
         ys.append(state @ cf[:, t, None, :, None])               # (B, H, P, 1)
     return torch.stack(ys, dim=1)[..., 0].to(x.dtype)
+
+
+def _chunks(t, q):
+    """(B, L, ...) → (B, C, Q, ...), float32."""
+    return t.float().reshape(t.shape[0], t.shape[1] // q, q, *t.shape[2:])
+
+
+def _xdt(x, dt, q):
+    """x·dt per chunk and head: (B, C, H, Q, P)."""
+    return (_chunks(x, q) * _chunks(dt, q)[..., None]).permute(0, 1, 3, 2, 4)
+
+
+def chunk_cum_ref(dt, a, q):
+    """cum (B, C, H, Q): the prefix sums of dt·a within each chunk."""
+    da = _chunks(dt, q).permute(0, 1, 3, 2) * a.float()[:, None]
+    return torch.cumsum(da, dim=-1)
+
+
+def chunk_gram_ref(b, c, q):
+    """C·Bᵀ per chunk, (B, C, Q, Q), zero above the diagonal; every head
+    shares it."""
+    return torch.tril(_chunks(c, q) @ _chunks(b, q).transpose(-1, -2))
+
+
+def chunk_states_ref(x, dt, b, cum):
+    """Each chunk's own state S_c = Σ_j e^{cum_last − cum_j} xdt_j ⊗ B_j,
+    (B, C, H, P, N)."""
+    q = cum.shape[-1]
+    w = torch.exp(cum[..., -1:] - cum)[..., None] * _xdt(x, dt, q)
+    return w.transpose(-1, -2) @ _chunks(b, q)[:, :, None]
+
+
+def state_pass_ref(states, cum):
+    """The states entering each chunk, (B, C, H, P, N): S_in[0] = 0,
+    S_in[c] = e^{cum_last[c−1]} S_in[c−1] + S_{c−1}, in sequence."""
+    g = torch.exp(cum[..., -1])                                  # (B, C, H)
+    state = torch.zeros_like(states[:, 0])
+    entering = []
+    for ic in range(states.shape[1]):
+        entering.append(state)
+        state = g[:, ic, :, None, None] * state + states[:, ic]
+    return torch.stack(entering, dim=1)
+
+
+def chunk_scan_ref(x, dt, c, gram, cum, states_in):
+    """y (B, L, H, P) from each chunk's C·Bᵀ (``gram``, lower triangle),
+    prefix sums and entering state:
+
+        y_i = Σ_{j≤i} G_ij e^{cum_i − cum_j} xdt_j + e^{cum_i} C_i · S_in
+
+    The decay's exponent is masked to −inf above the diagonal before
+    ``exp`` (the Pallas kernel masks after), so autograd through this
+    function never meets 0·inf."""
+    q = cum.shape[-1]
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    diff = cum[..., :, None] - cum[..., None, :]
+    decay = torch.exp(torch.where(tri, diff, -torch.inf))     # (B, C, H, Q, Q)
+    y = (gram[:, :, None] * decay) @ _xdt(x, dt, q)              # (B, C, H, Q, P)
+    y = y + torch.exp(cum)[..., None] * (
+        _chunks(c, q)[:, :, None] @ states_in.transpose(-1, -2))
+    bsz, l, h, p = x.shape
+    return y.permute(0, 1, 3, 2, 4).reshape(bsz, l, h, p).to(x.dtype)
 
 
 def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 128):
@@ -82,3 +152,17 @@ def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 128):
                  + w.transpose(-1, -2) @ bc)
         ys.append(y)
     return torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype)
+
+
+def ssd_scan_phases_ref(x, dt, a, b, c, *, chunk: int = 128):
+    """The CUDA kernels' state-passing arithmetic, phase by phase; equal to
+    :func:`ssd_scan_ref` up to f32 rounding. Q = min(chunk, L) must divide
+    L."""
+    l = x.shape[1]
+    q = min(chunk, l)
+    if l % q:
+        raise ValueError(f"ssd_scan_phases_ref: sequence {l} is not a "
+                         f"multiple of the chunk {q}")
+    cum = chunk_cum_ref(dt, a, q)
+    states_in = state_pass_ref(chunk_states_ref(x, dt, b, cum), cum)
+    return chunk_scan_ref(x, dt, c, chunk_gram_ref(b, c, q), cum, states_in)

@@ -1,6 +1,6 @@
-"""The port's SSD scan (B13's plain versions, its CPU wrapper, the chunked
-reference and the kernel route's gradient) against the JAX package, on
-identical numpy inputs. The Pallas kernel runs in interpret mode, as
+"""The port's SSD scan (B13's plain versions, their phases, its CPU wrapper,
+the chunked reference and the kernel route's gradient) against the JAX
+package, on identical numpy inputs. The Pallas kernel runs in interpret mode, as
 ``tests/test_kernels.py`` runs it.
 
 Tolerances: port vs JAX for the same algorithm, a max abs difference of
@@ -19,8 +19,17 @@ import torch
 from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
-from repro_torch.kernels.ssd_scan.kernel import check_fits, smem_bytes, ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.kernel import SMEM_BYTES, check_fits, ssd_scan
+from repro_torch.kernels.ssd_scan.ref import (
+    chunk_cum_ref,
+    chunk_gram_ref,
+    chunk_scan_ref,
+    chunk_states_ref,
+    ssd_ref,
+    ssd_scan_phases_ref,
+    ssd_scan_ref,
+    state_pass_ref,
+)
 from repro_torch.models.ssm import _ssd_pallas, ssd_chunked
 
 SAME = 5e-6
@@ -156,15 +165,77 @@ def test_wrapper_refuses_other_devices_and_ragged_chunks():
 
 
 @pytest.mark.parametrize("q,n,fits", [(128, 128, True), (64, 128, True),
-                                      (8, 16, True), (256, 128, False),
-                                      (192, 128, False), (256, 1, False)])
+                                      (8, 16, True), (256, 128, True),
+                                      (192, 128, True), (256, 1, True),
+                                      (512, 128, False), (264, 16, False)])
 def test_shared_memory_bounds_the_chunk(q, n, fits):
-    """The path's chunk 128 at N=128 fits Hopper's 227 KB per block; a
-    chunk that does not is refused by name before any launch."""
-    assert smem_bytes(128, 128) == 4 * (2 * 128 * 132 + 128 * 132
-                                        + 128 * 16 + 128 * 16 + 3 * 128)
+    """The kernels' shared memory is static (two stages of two 64 × 36
+    operand tiles, and 256 rows of prefix sums and dt): 38 KB whatever the
+    chunk or N, under the 48 KB a block gets without opt-in. A chunk whose
+    rows, padded to 32, pass the prefix sum's 256 is refused by name
+    before any launch."""
+    assert SMEM_BYTES == 4 * (2 * 2 * 64 * 36 + 2 * 256) == 38912 <= 48 * 1024
     if fits:
-        check_fits(q, n, 227 * 1024)
+        check_fits(q, n)
     else:
         with pytest.raises(ValueError, match=f"chunk {q} with N={n}"):
-            check_fits(q, n, 227 * 1024)
+            check_fits(q, n)
+
+
+@pytest.mark.parametrize("case", GRID, ids=_ids)
+def test_phases_compose_to_the_pallas_kernel(case):
+    """The phases' plain versions, composed as the kernels launch them
+    (cb, chunk_state, state_pass, chunk_scan), are ``ssd_scan_phases_ref``
+    and match the chunk-by-chunk ``ssd_scan_ref``, the Pallas kernel in
+    interpret mode and the JAX recurrence within 5e-6 of the largest
+    |y|."""
+    (l, chunk), (h, p, n) = case
+    args = _inputs(10, 2, l, h, p, n)
+    x, dt, a, b, c = _t(args)
+    cum = chunk_cum_ref(dt, a, chunk)
+    gram = chunk_gram_ref(b, c, chunk)
+    states_in = state_pass_ref(chunk_states_ref(x, dt, b, cum), cum)
+    got = chunk_scan_ref(x, dt, c, gram, cum, states_in)
+    assert torch.equal(got, ssd_scan_phases_ref(x, dt, a, b, c, chunk=chunk))
+    _same(got.numpy(), ssd_scan_ref(x, dt, a, b, c, chunk=chunk).numpy())
+    _same(got.numpy(), jax_ssd_scan(*_j(args), chunk=chunk, interpret=True))
+    _same(got.numpy(), jax_ssd_ref(*_j(args)))
+
+
+def _f64_phases(args, q):
+    """The phases in float64 numpy, written from their definitions: cum,
+    C·Bᵀ (lower triangle), each chunk's own state, the entering states."""
+    x, dt, a, b, c = (v.astype(np.float64) for v in args)
+    bsz, l, h, p = x.shape
+    nc = l // q
+    cum = np.cumsum((dt * a).reshape(bsz, nc, q, h), axis=2)
+    cum = cum.transpose(0, 1, 3, 2)                               # (B,C,H,Q)
+    bq, cq = b.reshape(bsz, nc, q, -1), c.reshape(bsz, nc, q, -1)
+    gram = np.tril(np.einsum("bcin,bcjn->bcij", cq, bq))
+    xdt = (x * dt[..., None]).reshape(bsz, nc, q, h, p)
+    dec = np.exp(cum[..., -1:] - cum)                             # (B,C,H,Q)
+    states = np.einsum("bchj,bcjhp,bcjn->bchpn", dec, xdt, bq)
+    entering = np.zeros_like(states)
+    for ic in range(1, nc):
+        entering[:, ic] = (np.exp(cum[:, ic - 1, :, -1])[..., None, None]
+                           * entering[:, ic - 1] + states[:, ic - 1])
+    return cum, gram, states, entering
+
+
+@pytest.mark.parametrize("case", GRID, ids=_ids)
+def test_phase_plain_versions_match_float64(case):
+    """Each phase's plain version against its definition in float64, each
+    within 1e-6 of its largest entry (f32 rounding over sums of at most
+    128 terms)."""
+    (l, chunk), (h, p, n) = case
+    args = _inputs(11, 2, l, h, p, n)
+    x, dt, a, b, c = _t(args)
+    cum, gram, states, entering = _f64_phases(args, chunk)
+    got_cum = chunk_cum_ref(dt, a, chunk)
+    got_states = chunk_states_ref(x, dt, b, got_cum)
+    _same(got_cum.numpy(), cum, 1e-6)
+    _same(chunk_gram_ref(b, c, chunk).numpy(), gram, 1e-6)
+    _same(got_states.numpy(), states, 1e-6)
+    _same(state_pass_ref(torch.tensor(states, dtype=torch.float32),
+                         torch.tensor(cum, dtype=torch.float32)).numpy(),
+          entering, 1e-6)
