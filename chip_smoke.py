@@ -22,9 +22,17 @@ nothing of JAX. Phases, one JSON line each:
    held and timed on its gated branch (``recv``/``old``, ``kernel_case``).
    Where one PyTorch call computes a kernel's function (the merge's
    ungated broadcast: ``torch.matmul(w.expand(M, M), z)``; eff:
-   ``torch.addcmul``), it is timed beside the kernel as a yardstick only,
-   into a fresh output (``library_ms``) and into the kernel's own
-   preallocated outputs (``library_same_out_ms``);
+   ``torch.addcmul``; flash attention: ``scaled_dot_product_attention``),
+   it is timed beside the kernel as a yardstick only, in two like-for-like
+   pairings: into a fresh output (``library_ms``) against the kernel
+   through its wrapper, which makes its own output, in the same kind of
+   CUDA graph (``wrapper_graph_ms``); and into the kernel's own
+   preallocated outputs (``library_same_out_ms``) against the bare launch
+   into them (``ms``). A ``fresh_outputs`` line says whether the fresh
+   outputs inside each capture share one block. ``merge_shapes`` holds the
+   merge at M in {1, 4, 63, 64} x n in {16384, 16421}, unit weights,
+   normalised and gated, reruns bit-identical; ``merge_lm_leaf`` times it
+   and the matmul at the lm path's largest leaf, (4, 151936 x 896);
 4. main path — the bilinear game at n=16384 (``game``: with the oracle
    GEMM and the noise draw timed alone) through ``PSEngine`` with M=64
    workers, K=50 local steps, R=5 rounds, fused step and merge kernels
@@ -145,6 +153,11 @@ QUANTIZE_INT_OPS = 70
 
 N, M, K, R = 16384, 64, 50, 5
 N_RAGGED = 16421
+# B5 is also held at these fleet sizes (the kernel splits 1 and 4 rows
+# otherwise than 63 and 64), and timed at the lm path's largest leaf:
+# qwen2-0.5b's (151936, 896) embedding stacked over its M = 4 workers.
+MERGE_ROWS = (1, 4, 63, 64)
+LM_LEAF = (4, 151936 * 896)
 # G0 is the method's guess of the gradient bound G; for this game
 # G ≈ ‖A‖₂·√n ≈ 1.15·n. With G0 = 1 the first steps are ~10⁴ times the
 # Lipschitz step and ulp-level differences between any two implementations
@@ -286,16 +299,44 @@ def rel_err(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
 
 
-def library_times(case, sets):
-    """The yardstick PyTorch call of a kernel case (``case["library"]``)
-    over ``sets``: into a fresh output, as a caller would make it (the
-    ``library_ms`` of the kernels line), and into the kernel's own
-    preallocated outputs (``library_same_out_ms``, an extra field).
-    Returns ``(library_ms, fields)``."""
-    return graph_ms([lambda x=x: case["library"](x) for x in sets]), dict(
-        library=case["library_name"],
-        library_same_out_ms=graph_ms(
-            [lambda x=x: case["library"](x, x["out"]) for x in sets]))
+def fresh_graph_ms(fn, sets):
+    """``graph_ms`` of ``fn(x)`` for each x of ``sets``, every call making
+    its own output as a caller does; and how many distinct blocks those
+    outputs took inside the capture (1: the graph's private pool handed
+    every call the block the call before it had freed)."""
+    ptrs = []
+
+    def call(x):
+        out = fn(x)
+        ptrs.append((out if hasattr(out, "data_ptr") else out[0]).data_ptr())
+
+    ms = graph_ms([lambda x=x: call(x) for x in sets])
+    return ms, len(set(ptrs[-len(sets):]))
+
+
+def library_times(name, library, library_name, sets, wrapper, ms,
+                  same_out=True):
+    """A kernel's yardstick PyTorch call ``library(x[, out])``, named
+    ``library_name``, over ``sets``, in two like-for-like pairings. Into a fresh output, as a
+    caller makes it (``library_ms`` of the kernels line), against the
+    kernel through its ``wrapper``, which makes its own output, in the same
+    kind of graph (``wrapper_graph_ms``); and, with ``same_out``, into the
+    kernel's own preallocated outputs ``x["out"]`` (``library_same_out_ms``)
+    against the bare launch into them (``ms``). Prints whether the fresh
+    outputs inside each capture share one block. Returns ``(library_ms,
+    fields)``."""
+    library_ms, library_blocks = fresh_graph_ms(library, sets)
+    wrapper_ms, wrapper_blocks = fresh_graph_ms(wrapper, sets)
+    emit("fresh_outputs", kernel=name, calls=len(sets),
+         wrapper_blocks=wrapper_blocks, library_blocks=library_blocks,
+         one_block=wrapper_blocks == library_blocks == 1)
+    fields = dict(library=library_name, wrapper_graph_ms=wrapper_ms,
+                  beats_library_fresh=wrapper_ms < library_ms)
+    if same_out:
+        same_ms = graph_ms([lambda x=x: library(x, x["out"]) for x in sets])
+        fields.update(library_same_out_ms=same_ms,
+                      beats_library_same_out=ms < same_ms)
+    return library_ms, fields
 
 
 def phase_device():
@@ -488,7 +529,9 @@ def phase_kernels():
             lambda: c["run"](sets[next(it) % len(sets)], box, c["kernel"]))
         library_ms, extra = None, {}
         if "library" in c:
-            library_ms, extra = library_times(c, sets)
+            library_ms, extra = library_times(
+                name, c["library"], c["library_name"], sets,
+                lambda x: c["run"](x, box, c["kernel"]), ms)
         b_ms, b_by = bound(c["bytes"], c["flops"])
         results[name] = dict(
             name=name, route="cuda", source=c["src"], replaces=c["replaces"],
@@ -628,7 +671,9 @@ def phase_codec_kernels(results):
         plain_ms = graph_ms([lambda x=x: c["plain"](x, True) for x in sets])
         library_ms, extra = None, {}
         if "library" in c:
-            library_ms, extra = library_times(c, sets)
+            library_ms, extra = library_times(
+                name, c["library"], c["library_name"], sets,
+                lambda x: c["run"](x, False), ms)
         b_ms, b_by = bound(c["bytes"], c["flops"], c["int_ops"])
         results[name] = dict(
             name=name, route="cuda", source=src, replaces=c["replaces"],
@@ -663,6 +708,85 @@ def phase_codec_kernels(results):
     emit("kernel_case", name="merge_stacked", case="recv/old gated, "
          "unit weights, one row keeps old", max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_merge_shapes():
+    """B5 beyond the main path's shape: against its plain version at M in
+    MERGE_ROWS x n in (N, N_RAGGED), with unit weights on w-scaled messages
+    (the codec path's form), with raw weights normalised in the kernel, and
+    gated (every third row keeps old); each call rerun, bit-identical. Then
+    B5 at the language-model path's largest leaf, timed beside
+    ``torch.matmul(w.expand(M, M), z)`` in both pairings; its tensors are
+    freed before the ``lm`` phase."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+    from repro_torch.kernels.sync_compress import ref as sr
+
+    dev = torch.device("cuda")
+
+    def inputs(seed, m, n):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return dict(z=torch.rand(m, n, generator=gen, device=dev) * 2 - 1,
+                    w=torch.rand(m, generator=gen, device=dev) * 1.9 + 0.1)
+
+    rows = []
+    for m, n in itertools.product(MERGE_ROWS, (N, N_RAGGED)):
+        x = inputs(4, m, n)
+        x.update(msg=x["z"] * (x["w"] / x["w"].sum())[:, None],
+                 old=torch.rand(m, n, device=dev))
+        recv = (torch.arange(m, device=dev) % 3 != 0).float()
+        calls = {
+            "unit": (lambda: sk.merge_stacked(x["msg"]),
+                     lambda: sr.merge_ref(x["msg"])),
+            "normalize": (lambda: sk.merge_stacked(x["z"], x["w"],
+                                                   normalize=True),
+                          lambda: sr.merge_ref(x["z"], x["w"],
+                                               normalize=True)),
+            "gated": (lambda: sk.merge_stacked(x["msg"], None, recv,
+                                               x["old"]),
+                      lambda: sr.merge_ref(x["msg"], recv=recv > 0,
+                                           old=x["old"])),
+        }
+        row = dict(m=m, n=n)
+        for label, (kernel, plain) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            row[label] = err = max_abs(got, want)
+            check(err <= TOL_ELEM, f"merge_stacked {label} {(m, n)}: max abs "
+                                   f"err {err}")
+            check(torch.equal(got, again),
+                  f"merge_stacked {label} {(m, n)}: reruns differ")
+            if label == "gated":
+                keep = recv == 0
+                check(torch.equal(got[keep], x["old"][keep]),
+                      f"merge_stacked {(m, n)}: a non-receiving row did not "
+                      "keep old")
+        rows.append(row)
+    emit("merge_shapes", tol=TOL_ELEM, reruns_bit_identical=True,
+         cases=rows)
+
+    m, n = LM_LEAF
+    sets = [inputs(300 + i, m, n) for i in range(2)]
+    for x in sets:                  # the 1/eta weights, normalised
+        x["w"] /= x["w"].sum()
+        x["out"] = torch.empty(m, n, device=dev)
+    err = max_abs(sk.merge_stacked(x["z"], x["w"]), sr.merge_ref(x["z"],
+                                                                x["w"]))
+    check(err <= TOL_ELEM, f"merge_stacked {LM_LEAF}: max abs err {err}")
+    ms = graph_ms([lambda x=x: sk.MERGE(
+        x["z"].data_ptr(), x["w"].data_ptr(), None, None, x["out"].data_ptr(),
+        m, n, 0, 1, sk._build.stream_of(x["z"])) for x in sets])
+    library_ms, extra = library_times(
+        f"merge_stacked {LM_LEAF}", lambda x, out=None: torch.matmul(
+            x["w"].expand(m, m), x["z"], out=out),
+        "torch.matmul(w.expand(M, M), z)", sets,
+        lambda x: sk.merge_stacked(x["z"], x["w"]), ms)
+    b_ms, b_by = bound(4 * (2 * m * n + m), 2 * m * n)
+    emit("merge_lm_leaf", shape=[m, n], sets=len(sets), max_abs_err=err,
+         ms=ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+    del sets, x
+    torch.cuda.empty_cache()
 
 
 def reset_launches():
@@ -1251,13 +1375,15 @@ def phase_flash_kernels(results):
             # one PyTorch call of the same function, timed as a yardstick
             sdpa_err = max_abs(tnf.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), want)
-            row["library_ms"] = graph_ms([
-                lambda x=x: tnf.scaled_dot_product_attention(
-                    *x, is_causal=True, enable_gqa=True) for x in sets * 2])
-            extra = dict(library="torch.nn.functional."
-                         "scaled_dot_product_attention(is_causal=True, "
-                         "enable_gqa=True), f32, TF32 off",
-                         library_max_abs_err=sdpa_err)
+            row["library_ms"], extra = library_times(
+                "flash_attention",
+                lambda x: tnf.scaled_dot_product_attention(
+                    *x, is_causal=True, enable_gqa=True),
+                "torch.nn.functional.scaled_dot_product_attention("
+                "is_causal=True, enable_gqa=True), f32, TF32 off",
+                sets * 2, lambda x: fk.flash_attention(*x, causal=True), ms,
+                same_out=False)
+            extra["library_max_abs_err"] = sdpa_err
         emit("kernel", **row, variant=label, shape=shape, options=opts,
              tflops=flops / (ms * 1e-3) / 1e12, **extra)
         if label == "path":
@@ -1731,6 +1857,7 @@ def main() -> int:
     phase_build()
     results = phase_kernels()
     phase_codec_kernels(results)
+    phase_merge_shapes()
     phase_robust_kernels(results)
     phase_flash_kernels(results)
     phase_ssd_kernels(results)

@@ -12,13 +12,29 @@
 // row that does not receive). At 3.35 TB/s that is 2.5 us for M=64,
 // n=16384. The M multiply-adds per column are far below the f32 rate.
 //
-// Design: each thread owns a column (four adjacent columns, as float4, when
-// the row length and pointers allow it), accumulates the weighted sum over
-// the M rows in a fixed order in f32 registers, then writes the sum down
-// the same column of every row. So z is read once, out written once, and
-// the sum is deterministic with no atomics. The weights (normalised once
-// per block when asked) sit in shared memory. The grid is 1-D over column
-// groups; the ragged tail is masked by the column bound.
+// What limited the first design (a thread per float4 column group, summing
+// all M rows in one loop, then writing them): at n=16384 it ran 32 blocks of
+// 128 threads, on 32 of the 132 SMs, and a thread had one or two 16-byte
+// loads in flight. That is a few hundred KB in flight where Little's law
+// asks for ~2 MB at HBM latency: 15.2 us on an H100 80GB HBM3 at 700 W,
+// 1.6x torch.matmul(w.expand(M, M), z).
+//
+// Design: a block of 256 threads is S row slices x 256/S lanes, a lane a
+// float4 column group (one column when the row length or the pointers do
+// not allow float4). A slice sums w_i z_i over its own ceil(M/S) rows in
+// row order, a batch of 8 rows loaded into registers before their FMAs (the
+// first batch before the weights are staged, which its loads do not need).
+// The slices' partial sums meet in shared memory, every thread adds them in
+// slice order 0..S-1, and each slice writes the sum down its own rows (old
+// for a row that does not receive). At (64, 16384) S = 8: 128 blocks, 8
+// warps an SM, the whole 4 MiB of z in flight at once. The launcher doubles
+// S, up to 8, while the grid has fewer than 128 blocks and every slice keeps
+// a batch of rows, so a leaf of few rows (the language models' M = 4) stays
+// one slice of whole columns, the first design's shape. Sum order: rows in
+// order within a slice, then the slices in order; fixed, with no atomics, so
+// reruns are bit-identical (S = 1 is the first design's order). The weights,
+// normalised once per block when asked, sit in shared memory; the ragged
+// tail is masked by the column bound.
 //
 // The codec uplink kernels replace the Pallas kernels of the same file that
 // run through _uplink_call (pallas_call :313):
@@ -97,82 +113,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
-             const float* __restrict__ recv, const float* __restrict__ old,
-             float* __restrict__ out, int rows, int n, int normalize) {
-  extern __shared__ float wsh[];  // rows weights
-  __shared__ float total;
-  if (w != nullptr) {
-    for (int i = threadIdx.x; i < rows; i += kThreads) wsh[i] = w[i];
-    __syncthreads();
-    if (normalize) {
-      if (threadIdx.x == 0) {
-        float s = 0.f;
-        for (int i = 0; i < rows; ++i) s += wsh[i];
-        total = s;
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows; i += kThreads) wsh[i] /= total;
-      __syncthreads();
-    }
-  }
-  const int64_t col = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
-  if (col >= n) return;
-
-  float acc[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = 0.f;
-  for (int i = 0; i < rows; ++i) {
-    const float* zi = z + static_cast<int64_t>(i) * n + col;
-    float zv[V];
-    if constexpr (V == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(zi);
-      zv[0] = t.x; zv[1] = t.y; zv[2] = t.z; zv[3] = t.w;
-    } else {
-      zv[0] = zi[0];
-    }
-    const float wi = (w != nullptr) ? wsh[i] : 1.f;
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = (w != nullptr) ? acc[v] + wi * zv[v] : acc[v] + zv[v];
-  }
-  for (int i = 0; i < rows; ++i) {
-    const int64_t off = static_cast<int64_t>(i) * n + col;
-    float ov[V];
-    const bool keep_old = recv != nullptr && !(recv[i] > 0.f);
-#pragma unroll
-    for (int v = 0; v < V; ++v) ov[v] = keep_old ? old[off + v] : acc[v];
-    if constexpr (V == 4) {
-      *reinterpret_cast<float4*>(out + off) = make_float4(ov[0], ov[1], ov[2], ov[3]);
-    } else {
-      out[off] = ov[0];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Codec uplink (B6-B9): grid (column tiles x workers), V columns per thread
-// and step (V = 4: float4 loads and stores).
-// ---------------------------------------------------------------------------
-constexpr int kUpThreads = 256;
-
 template <int V>
 __device__ __forceinline__ void load(const float* p, float (&v)[V]) {
   if constexpr (V == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load(const uint8_t* p, uint8_t (&v)[V]) {
-  if constexpr (V == 4) {
-    const uchar4 t = *reinterpret_cast<const uchar4*>(p);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else {
     v[0] = p[0];
@@ -185,6 +129,162 @@ __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
     p[0] = v[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B5 merge: S row slices x kMergeThreads / S lanes a block, V columns a lane
+// (V = 4: float4 loads and stores), kMergeBatch rows loaded at a time.
+// ---------------------------------------------------------------------------
+constexpr int kMergeThreads = 256;
+constexpr int kMergeBatch = 8;
+constexpr int kMergeMaxSlices = 8;
+constexpr int kMergeFillBlocks = 128;  // about one block for each of 132 SMs
+
+// Dynamic shared memory: the slices' partial sums (S > 1), then the rows
+// weights (w given).
+template <int V, int S>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
+             const float* __restrict__ recv, const float* __restrict__ old,
+             float* __restrict__ out, int rows, int n, int normalize) {
+  constexpr int kLanes = kMergeThreads / S;
+  constexpr int U = kMergeBatch;
+  extern __shared__ __align__(16) float sh[];
+  float* part = sh;
+  float* wsh = sh + (S > 1 ? kMergeThreads * V : 0);
+  __shared__ float total;
+  const int lane = threadIdx.x % kLanes;
+  const int slice = threadIdx.x / kLanes;
+  const int64_t col = (static_cast<int64_t>(blockIdx.x) * kLanes + lane) * V;
+  const bool active = col < n;
+  const int per = (rows + S - 1) / S;
+  const int r0 = min(slice * per, rows);
+  const int r1 = min(r0 + per, rows);
+
+  float zv[U][V] = {};
+  auto load_batch = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (active && i0 + u < r1) {
+        load<V>(z + static_cast<int64_t>(i0 + u) * n + col, zv[u]);
+      }
+    }
+  };
+  load_batch(r0);
+  if (w != nullptr) {
+    for (int i = threadIdx.x; i < rows; i += kMergeThreads) wsh[i] = w[i];
+    __syncthreads();
+    if (normalize) {
+      if (threadIdx.x == 0) {
+        float s = 0.f;
+        for (int i = 0; i < rows; ++i) s += wsh[i];
+        total = s;
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows; i += kMergeThreads) wsh[i] /= total;
+      __syncthreads();
+    }
+  }
+  float acc[V] = {};
+  for (int i0 = r0; i0 < r1;) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + u < r1) {
+        const float wi = (w != nullptr) ? wsh[i0 + u] : 1.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          acc[v] = (w != nullptr) ? acc[v] + wi * zv[u][v] : acc[v] + zv[u][v];
+        }
+      }
+    }
+    i0 += U;
+    if (i0 < r1) load_batch(i0);
+  }
+  if constexpr (S > 1) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) part[threadIdx.x * V + v] = acc[v];
+    __syncthreads();
+    const int used = (rows + per - 1) / per;  // slices that hold rows
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = part[lane * V + v];
+    for (int k = 1; k < used; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] += part[(k * kLanes + lane) * V + v];
+    }
+  }
+  if (!active) return;
+  for (int i0 = r0; i0 < r1; i0 += U) {
+    float ov[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + u < r1 && recv != nullptr && !(recv[i0 + u] > 0.f)) {
+        load<V>(old + static_cast<int64_t>(i0 + u) * n + col, ov[u]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) ov[u][v] = acc[v];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + u < r1) store<V>(out + static_cast<int64_t>(i0 + u) * n + col, ov[u]);
+    }
+  }
+}
+
+template <int V, int S>
+int merge_launch(const float* z, const float* w, const float* recv,
+                 const float* old, float* out, int rows, int n, int normalize,
+                 unsigned blocks, cudaStream_t s) {
+  const size_t smem = ((S > 1 ? kMergeThreads * V : 0) + (w != nullptr ? rows : 0))
+                      * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_kernel<V, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  merge_kernel<V, S><<<blocks, kMergeThreads, smem, s>>>(z, w, recv, old, out,
+                                                         rows, n, normalize);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V>
+int merge_dispatch(const float* z, const float* w, const float* recv,
+                   const float* old, float* out, int rows, int n, int normalize,
+                   cudaStream_t s) {
+  const int64_t lanes = (n + V - 1) / V;
+  auto blocks = [&](int slices) {
+    return static_cast<unsigned>((lanes * slices + kMergeThreads - 1) / kMergeThreads);
+  };
+  int slices = 1;
+  while (slices < kMergeMaxSlices
+         && (rows + kMergeBatch - 1) / kMergeBatch >= 2 * slices
+         && blocks(slices) < kMergeFillBlocks) {
+    slices *= 2;
+  }
+  const unsigned b = blocks(slices);
+  switch (slices) {
+    case 1: return merge_launch<V, 1>(z, w, recv, old, out, rows, n, normalize, b, s);
+    case 2: return merge_launch<V, 2>(z, w, recv, old, out, rows, n, normalize, b, s);
+    case 4: return merge_launch<V, 4>(z, w, recv, old, out, rows, n, normalize, b, s);
+    default: return merge_launch<V, 8>(z, w, recv, old, out, rows, n, normalize, b, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Codec uplink (B6-B9): grid (column tiles x workers), V columns per thread
+// and step (V = 4: float4 loads and stores).
+// ---------------------------------------------------------------------------
+constexpr int kUpThreads = 256;
+
+template <int V>
+__device__ __forceinline__ void load(const uint8_t* p, uint8_t (&v)[V]) {
+  if constexpr (V == 4) {
+    const uchar4 t = *reinterpret_cast<const uchar4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = p[0];
   }
 }
 
@@ -524,21 +624,14 @@ dim3 uplink_grid(int rows, int n, int tile) {
 
 extern "C" {
 
-// w, recv and old may be null (unit weights / every row receives).
+// w, recv and old may be null (unit weights / every row receives). vec = 1
+// takes the float4 path: n a multiple of 4, pointers 16-byte aligned.
 int merge_stacked_launch(const float* z, const float* w, const float* recv,
                          const float* old, float* out, int rows, int n,
                          int normalize, int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(rows) * sizeof(float);
-  if (vec) {
-    const int groups = n / 4;
-    const unsigned blocks = static_cast<unsigned>((groups + kThreads - 1) / kThreads);
-    merge_kernel<4><<<blocks, kThreads, smem, s>>>(z, w, recv, old, out, rows, n, normalize);
-  } else {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    merge_kernel<1><<<blocks, kThreads, smem, s>>>(z, w, recv, old, out, rows, n, normalize);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vec ? merge_dispatch<4>(z, w, recv, old, out, rows, n, normalize, s)
+             : merge_dispatch<1>(z, w, recv, old, out, rows, n, normalize, s);
 }
 
 // The uplink launchers: w, ef and alive may be null (no weight / no

@@ -53,7 +53,8 @@ OUTER = _build.Kernel("outer_apply", _SRC, "outer_apply_launch",
                       [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F,
                        P])
 
-#: the merge kernel keeps the M weights in (default-sized) shared memory
+#: the merge kernel keeps the M weights in shared memory (48 KB at most,
+#: beside the row slices' 4 KB of partial sums)
 MAX_ROWS = 12 * 1024
 #: columns of one worker's row per block of the uplink kernels
 TILE = 2048
