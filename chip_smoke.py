@@ -56,22 +56,30 @@ nothing of JAX. Phases, one JSON line each:
    round's wall time;
 7. robust — the same game with a hostile fleet and the server's outer
    optimizer (``robust_kernels`` first holds the robust merge and the outer
-   step against their plain versions, ties and a dead row included): a
+   step against their plain versions, ties and a dead row included, the
+   merge's reruns bit-identical and its fleets up to the largest the
+   wrapper accepts in ``trimmed_fleets``): a
    sign-flip attack on 20% of the fleet under the plain mean, a trimmed
    mean, the coordinate median and multi-Krum; a clean fleet under outer
    Nesterov and outer Adam; and everything stacked (attack, DP, q8 with
    error feedback, faults, trimmed mean, Nesterov). Each runs on the fused
    and the reference backends, which must agree within rtol 1e-4; the
    median must end below the plain mean; the robust merge and the outer
-   step must have launched where they run. Then a fused trimmed+Nesterov
+   step must have launched where they run; ``robust_final`` gives the
+   trimmed, median and stack cells' final residuals in hex, to compare two
+   trees to the bit. Then a fused trimmed+Nesterov
    run is checkpointed at round 2, restored into a new engine and run on,
    and must equal the uninterrupted run bit for bit;
 8. flash_kernels — the flash-attention kernel (B12) against its plain
    PyTorch version on unit-normal inputs, within 2e-5: the language-model
    path's shape (B=1, H=14, Kh=2, S=T=1024, D=64, causal), a sliding
-   window of 256, a soft cap of 50, D=128 and S=1000 (a ragged tile); timed
-   beside its plain version and ``scaled_dot_product_attention`` (f32, no
-   TF32; a yardstick only, the port never calls it);
+   window of 256, a soft cap of 50, D=128 and S=1000 (a ragged tile),
+   reruns bit-identical; timed beside its plain version and
+   ``scaled_dot_product_attention`` (f32, no TF32; a yardstick only, the
+   port never calls it). ``bound_ms`` is the faster of the card's two
+   routes to f32-accurate products: the split product on the tensor cores
+   (three TF32 terms at the dense TF32 peak, beside the exponentials on the
+   MUFU and the bytes), which is always below the f32 FMAs' bound;
 9. ssd_kernels — the SSD scan kernel (B13) against its plain version (the
    kernels' chunked arithmetic) within TOL_SSD and against the sequential
    recurrence within TOL_SSD_ORACLE (max abs error over the largest |y|),
@@ -133,9 +141,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak.
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak
+# and dense TF32 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 # f32 instructions that are not FMAs (compares, selects, adds): 128 lanes per
 # SM per clock, times the SMs and the maximum SM clock (set by the device
 # phase).
@@ -144,7 +154,9 @@ F32_LANES_PER_SM_CLOCK = 128
 # the SMs times the maximum SM clock nvidia-smi reports (set by the device
 # phase).
 INT32_LANES_PER_SM_CLOCK = 64
-CARD = {"int32_ops_per_s": None, "f32_issue_per_s": None}
+# exponentials (MUFU ex2): 16 per SM per clock
+MUFU_PER_SM_CLOCK = 16
+CARD = {"int32_ops_per_s": None, "f32_issue_per_s": None, "mufu_per_s": None}
 # Live int32 operations per element of the quantize kernel: 68 for
 # threefry2x32 once the compiler drops what the first output word does not
 # need (19 mixes of add, funnel shift and xor, the last mix's add, 9 key
@@ -176,9 +188,10 @@ DEAD_ROW = 3         # the dead worker of the uplink kernel checks
 # bench_fig4_scenarios.py, examples/ps_simulate.py).
 ATTACK = dict(fraction=0.2, scale=8.0, seed=11)
 TRIMS = (12, 31)     # TrimmedMean(0.2) and CoordinateMedian() at M = 64
-# Operations per rank pair of the robust merge: two compares and a masked
-# add.
-TRIM_PAIR_OPS = 3
+# Operations per unordered rank pair of the robust merge, the least work:
+# one compare of z_i and z_j settles both ranks (a tie goes to the lower
+# row), and one add puts the pair's incl into the higher one's rank.
+TRIM_PAIR_OPS = 2
 TOL_REL_STAT = 1e-5  # the outer step's Σ Δ², summed in another order
 OUTER_SETS = 160     # (1, n) timing sets: 160 × 7 × 64 KiB > the 50 MB L2
 # Flash attention (B12) at the language-model path's shape: qwen2-0.5b's
@@ -356,6 +369,7 @@ def phase_device():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["int32_ops_per_s"] = INT32_LANES_PER_SM_CLOCK * sms * clock_mhz * 1e6
     CARD["f32_issue_per_s"] = F32_LANES_PER_SM_CLOCK * sms * clock_mhz * 1e6
+    CARD["mufu_per_s"] = MUFU_PER_SM_CLOCK * sms * clock_mhz * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -366,7 +380,8 @@ def phase_device():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, sms=sms, max_sm_clock_mhz=clock_mhz,
          int32_ops_per_s=CARD["int32_ops_per_s"],
-         f32_issue_per_s=CARD["f32_issue_per_s"])
+         f32_issue_per_s=CARD["f32_issue_per_s"],
+         mufu_per_s=CARD["mufu_per_s"])
     return smi
 
 
@@ -1016,9 +1031,11 @@ def phase_robust_kernels(results):
     """The robust merge (B10) and the outer step (B11) against their plain
     versions, and their times. B10: trims 12 and 31, non-uniform weights,
     with and without a dead row (incl = recv = 0, keeps ``old``), and on
-    inputs rounded to nine levels (ties everywhere); a 256-worker fleet
-    (opt-in shared memory), and a fleet too large, which must be refused.
-    B11: each policy at t = 0 and t = 5."""
+    inputs rounded to nine levels (ties everywhere), reruns bit-identical;
+    fleets of 256 and 512 workers and the largest the wrapper accepts
+    (``TRIMMED_MAX_ROWS``; 512 and up take the opt-in shared memory), and a
+    fleet too large, which must be refused. B11: each policy at t = 0 and
+    t = 5."""
     import torch
 
     from repro_torch.kernels.sync_compress import kernel as sk
@@ -1052,26 +1069,45 @@ def phase_robust_kernels(results):
                     got = sk.trimmed_merge_stacked(
                         x["z"], x["w"], x["incl"], x["recv"], x["old"],
                         trim=trim)
+                    again = sk.trimmed_merge_stacked(
+                        x["z"], x["w"], x["incl"], x["recv"], x["old"],
+                        trim=trim)
                     want = sr.trimmed_merge_ref(
                         x["z"], x["w"], x["incl"], trim=trim,
                         recv=None if x["recv"] is None else x["recv"] > 0,
                         old=x["old"])
                     torch.cuda.synchronize()
                     err = max(err, max_abs(got, want))
+                    check(torch.equal(got, again),
+                          f"trimmed_merge_stacked {(n, trim, dead, ties)}: "
+                          "a rerun differs")
                     if dead:
                         check(torch.equal(got[DEAD_ROW], x["old"][DEAD_ROW]),
                               "trimmed_merge_stacked: the dead row did not "
                               "keep old")
     # Fleets past the default 48 KB of shared memory take the opt-in
-    # carve-out (M = 256 needs 68.6 KB); past 227 KB the wrapper refuses.
-    gen = torch.Generator(device=dev).manual_seed(9)
-    z = torch.rand(256, 1031, generator=gen, device=dev)
-    w = torch.rand(256, generator=gen, device=dev) + 0.5
-    incl = torch.ones(256, device=dev)
-    got = sk.trimmed_merge_stacked(z, w, incl, trim=51)
-    want = sr.trimmed_merge_ref(z, w, incl, trim=51)
-    torch.cuda.synchronize()
-    err = max(err, max_abs(got, want))
+    # carve-out (M = 512 needs 86 KB; M = 256 43 KB); past 227 KB the
+    # wrapper refuses. The largest fleet it accepts sums ~800 survivors,
+    # in another order than the plain version: held at TOL_STAT.
+    big_fleets = {}
+    for rows, seed in ((256, 9), (512, 10), (sk.TRIMMED_MAX_ROWS, 12)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        z = torch.rand(rows, 1031, generator=gen, device=dev)
+        w = torch.rand(rows, generator=gen, device=dev) + 0.5
+        incl = torch.ones(rows, device=dev)
+        trim = rows // 5
+        got = sk.trimmed_merge_stacked(z, w, incl, trim=trim)
+        want = sr.trimmed_merge_ref(z, w, incl, trim=trim)
+        torch.cuda.synchronize()
+        big_fleets[rows] = max_abs(got, want)
+    err = max(err, big_fleets[256], big_fleets[512])
+    check(big_fleets[sk.TRIMMED_MAX_ROWS] <= TOL_STAT,
+          f"trimmed_merge_stacked {sk.TRIMMED_MAX_ROWS} rows: max abs err "
+          f"{big_fleets[sk.TRIMMED_MAX_ROWS]}")
+    emit("trimmed_fleets", max_rows=sk.TRIMMED_MAX_ROWS,
+         max_abs_err={str(k): v for k, v in big_fleets.items()},
+         tol={"256": TOL_ELEM, "512": TOL_ELEM,
+              str(sk.TRIMMED_MAX_ROWS): TOL_STAT})
     big = sk.TRIMMED_MAX_ROWS + 1
     try:
         sk.trimmed_merge_stacked(torch.zeros(big, 8, device=dev),
@@ -1091,9 +1127,9 @@ def phase_robust_kernels(results):
         plain_ms = graph_ms([lambda x=x: sr.trimmed_merge_ref(
             x["z"], x["w"], x["incl"], trim=trim) for x in sets])
         # read z and the (M,) vectors, write the (M, n) broadcast; every
-        # row is included, so each column ranks M × M pairs
+        # row is included, so each column ranks M (M - 1) / 2 pairs
         b_ms, b_by = bound(4 * (2 * M * N + 2 * M), 0.0,
-                           issue_ops=TRIM_PAIR_OPS * M * M * N)
+                           issue_ops=TRIM_PAIR_OPS * M * (M - 1) // 2 * N)
         row = dict(name="trimmed_merge_stacked", route="cuda", source=src,
                    replaces="src/repro/kernels/sync_compress/kernel.py:446",
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1274,6 +1310,12 @@ def phase_robust(results, game):
                     else {"max_rel_vs_fused": rel}))
         check(rel <= TOL_TRACE,
               f"{label}: fused vs reference residuals differ by {rel}")
+        if label in ("trimmed", "median", "stack"):
+            # to the bit, for comparing two trees' robust merges in one call
+            emit("robust_final", run=label,
+                 **{f"{b}_final_residual_hex": float(r[-1]).hex()
+                    for b, r in (("fused", res_f),
+                                 ("reference", res_r))})
     check(finals["median"] < finals["mean_attack"],
           f"median ({finals['median']}) did not beat the plain mean under "
           f"attack ({finals['mean_attack']})")
@@ -1349,11 +1391,14 @@ def phase_flash_kernels(results):
         b, h, kh, s, d = (shape[k] for k in ("b", "h", "kh", "s", "d"))
         q, k, v = inputs(1, b, h, kh, s, d)
         got = fk.flash_attention(q, k, v, causal=True, **opts)
+        again = fk.flash_attention(q, k, v, causal=True, **opts)
         want = fr.attention_ref(q, k, v, causal=True, **opts)
         torch.cuda.synchronize()
         err = max_abs(got, want)
         err_all = max(err_all, err)
         check(err <= TOL_FLASH, f"flash_attention {label}: max abs err {err}")
+        check(torch.equal(got, again),
+              f"flash_attention {label}: a rerun differs")
         # 12 input sets of 5.2 MB (more at D=128) exceed the 50 MB L2
         sets = [inputs(100 + i, b, h, kh, s, d) for i in range(12)]
         ms = graph_ms([lambda x=x: fk.flash_attention(*x, causal=True,
@@ -1362,9 +1407,17 @@ def phase_flash_kernels(results):
         plain_ms = graph_ms([lambda x=x: fr.attention_ref(*x, causal=True,
                                                           **opts)
                              for x in sets])
-        flops = 4.0 * d * pairs(s, opts.get("window")) * b * h
-        b_ms, b_by = bound(4.0 * (2 * b * h * s * d + 2 * b * kh * s * d),
-                           flops)
+        n_pairs = pairs(s, opts.get("window")) * b * h
+        flops = 4.0 * d * n_pairs
+        bytes_moved = 4.0 * (2 * b * h * s * d + 2 * b * kh * s * d)
+        # the faster of two routes to f32-accurate products: f32 FMAs, or
+        # the split product's three TF32 terms on the tensor cores beside one
+        # exponential a visible pair on the MUFU
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        b_ms = min(bound(bytes_moved, flops)[0],
+                   max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3,
+                       n_pairs / CARD["mufu_per_s"] * 1e3))
+        b_by = "bytes" if b_ms == t_bytes else "operations"
         row = dict(name="flash_attention", route="cuda",
                    source="src/repro_torch/csrc/flash_attention.cu",
                    replaces="src/repro/kernels/flash_attention/kernel.py:97",
@@ -1375,7 +1428,7 @@ def phase_flash_kernels(results):
             # one PyTorch call of the same function, timed as a yardstick
             sdpa_err = max_abs(tnf.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), want)
-            row["library_ms"], extra = library_times(
+            row["library_ms"], pairing = library_times(
                 "flash_attention",
                 lambda x: tnf.scaled_dot_product_attention(
                     *x, is_causal=True, enable_gqa=True),
@@ -1383,11 +1436,11 @@ def phase_flash_kernels(results):
                 "is_causal=True, enable_gqa=True), f32, TF32 off",
                 sets * 2, lambda x: fk.flash_attention(*x, causal=True), ms,
                 same_out=False)
-            extra["library_max_abs_err"] = sdpa_err
+            extra.update(pairing, library_max_abs_err=sdpa_err)
         emit("kernel", **row, variant=label, shape=shape, options=opts,
              tflops=flops / (ms * 1e-3) / 1e12, **extra)
         if label == "path":
-            results["flash_attention"] = row
+            results["flash_attention"] = dict(row)
     results["flash_attention"]["max_abs_err"] = err_all
 
 

@@ -74,19 +74,36 @@
 // with b = min(trim, floor((n_incl - 1) / 2)), rows with incl_i > 0 and
 // b <= rank_ij <= n_incl - 1 - b survive, and every row receives
 // sum_i w_i keep_ij z_ij / max(sum_i w_i keep_ij, 1e-30) (rows with recv = 0
-// keep old instead). Bound on an H100: operations, not bytes. At (64, 16384)
-// it moves 8 MiB (2.5 us at 3.35 TB/s; 3.8 us with recv/old) but does
-// 64^2 * 16384 = 6.7e7 rank pairs of about 3 operations each (two compares
-// and a masked add), 2.0e8 operations: 6.1 us at the f32 non-FMA issue rate
-// of 132 SMs x 128 lanes x 1980 MHz. Design: a block owns 64 columns, one
-// per thread, and stages its (M, 64) slice in shared memory (a thread reads
-// only its own column, so the slice needs no synchronisation; neighbouring
-// threads hit neighbouring banks). Each thread ranks four rows at a time
-// against the whole column (one shared load feeds four compares, four
-// independent add chains), then adds the kept rows' w z and w in row order
-// 0..M-1 -- the plain version's survivor set exactly, and a fixed sum
-// order, with no atomics. The slice takes 4 M (64 + 3) bytes of shared
-// memory: M <= 183 fits the default 48 KB, M <= 867 the opt-in 227 KB,
+// keep old instead). Bound on an H100: bytes. At (64, 16384) it moves 8 MiB
+// (2.5 us at 3.35 TB/s; 3.8 us with recv/old). The ranks need at least
+// 64 * 63 / 2 * 16384 = 3.3e7 unordered pairs, each one compare (which
+// settles both ranks) and one add, 6.6e7 operations: 2.0 us at the f32
+// non-FMA issue rate of 132 SMs x 128 lanes x 1980 MHz. This design ranks
+// each ordered pair on its own, a compare and a predicated add, 4.0 us.
+//
+// What limited the first design (a block of 64 threads owning 64 columns,
+// one per thread, each ranking all M rows of its column): at (64, 16384)
+// 256 blocks of 2 warps, about four warps an SM, each thread a dependent
+// 64 x 64 compare-and-add chain -- a latency chain, 66.8 us on an H100
+// 80GB HBM3 at 700 W against the 2.5 us bound.
+//
+// Design: a block of 256 threads owns 32 columns and stages its (M, 32)
+// slice in shared memory. Thread x is column x % 32, so loads, shared reads
+// and stores are coalesced and conflict-free, and row group x / 32 of 8:
+// each thread ranks the rows i = group + 8r (r < ceil(M / 8)) against the
+// whole staged column, 8 rows a pass (one shared load feeds 8 compares and
+// 8 independent add chains; the tie-break on the row index is settled by
+// splitting the k loop at the thread's rows, so a pair costs one compare
+// and a predicated add), and writes their keep flags to shared memory.
+// After one barrier one thread per column adds the kept rows' w z and w in
+// row order 0..M-1 -- the plain version's survivor set exactly, and the
+// first design's sum order, with no atomics. Ranks add the 0/1 incl over
+// k in order, as before, so the output is bit-identical to the first
+// design's. Then all 256 threads write the M output rows (old
+// where recv = 0). At n = 16384 that is 512 blocks of 8 warps. The slice
+// takes 4 M (32 + 3) + 32 M bytes of shared memory (the column, w, incl,
+// recv, and a byte of keep flag a row and column) and 132 bytes of
+// scalars: M <= 285 fits the default 48 KB, M <= 1350 the opt-in 227 KB,
 // larger fleets are refused by the wrapper. The ragged column edge is
 // masked by the column bound.
 //
@@ -489,72 +506,104 @@ mask_kernel(const float* __restrict__ eff, const uint8_t* __restrict__ mask,
 }
 
 // ---------------------------------------------------------------------------
-// B10 robust merge: one thread per column, the block's (M, 64) slice staged
-// in shared memory.
+// B10 robust merge: 32 columns x 8 row groups a block, the block's (M, 32)
+// slice staged in shared memory.
 // ---------------------------------------------------------------------------
-constexpr int kTrimCols = 64;
-constexpr int kTrimGroup = 4;  // rows ranked together per pass
+constexpr int kTrimCols = 32;
+constexpr int kTrimGroups = 8;
+constexpr int kTrimThreads = kTrimCols * kTrimGroups;
+constexpr int kTrimPass = 8;   // rows a thread ranks per pass over the column
 
-__global__ void __launch_bounds__(kTrimCols)
+__global__ void __launch_bounds__(kTrimThreads)
 trimmed_kernel(const float* __restrict__ z, const float* __restrict__ w,
                const float* __restrict__ incl, const float* __restrict__ recv,
                const float* __restrict__ old, float* __restrict__ out,
                int rows, int n, float trim) {
   extern __shared__ float sh[];
-  float* w_sh = sh;                        // rows
-  float* incl_sh = w_sh + rows;            // rows
-  float* recv_sh = incl_sh + rows;         // rows (1 = receives)
-  float* col_sh = recv_sh + rows;          // rows x kTrimCols
-  __shared__ float n_incl_sh;
-  for (int i = threadIdx.x; i < rows; i += kTrimCols) {
+  float* col_sh = sh;                         // rows x kTrimCols
+  float* w_sh = col_sh + rows * kTrimCols;    // rows
+  float* incl_sh = w_sh + rows;               // rows
+  float* recv_sh = incl_sh + rows;            // rows (1 = receives)
+  float* mean_sh = recv_sh + rows;            // kTrimCols
+  float* n_incl_sh = mean_sh + kTrimCols;     // 1
+  uint8_t* keep_sh = reinterpret_cast<uint8_t*>(n_incl_sh + 1);  // rows x kTrimCols
+
+  const int lane = threadIdx.x % kTrimCols;
+  const int group = threadIdx.x / kTrimCols;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTrimCols + lane;
+  const bool in = col < n;
+  for (int i = threadIdx.x; i < rows; i += kTrimThreads) {
     w_sh[i] = w[i];
     incl_sh[i] = incl[i];
     recv_sh[i] = (recv == nullptr || recv[i] > 0.f) ? 1.f : 0.f;
+  }
+  for (int k = group; k < rows; k += kTrimGroups) {
+    col_sh[k * kTrimCols + lane] = in ? z[static_cast<int64_t>(k) * n + col] : 0.f;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int i = 0; i < rows; ++i) s = __fadd_rn(s, incl_sh[i]);
-    n_incl_sh = s;
+    *n_incl_sh = s;
   }
   __syncthreads();
-  const float n_incl = n_incl_sh;
+  const float n_incl = *n_incl_sh;
   const float b = fminf(trim, floorf(__fmul_rn(__fsub_rn(n_incl, 1.f), 0.5f)));
   const float hi = __fsub_rn(__fsub_rn(n_incl, 1.f), b);
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTrimCols + threadIdx.x;
-  if (col >= n) return;
 
-  float* mine = col_sh + threadIdx.x;      // this thread's column, stride kTrimCols
-  for (int k = 0; k < rows; ++k) mine[k * kTrimCols] = z[static_cast<int64_t>(k) * n + col];
-
-  float num = 0.f, den = 0.f;
-  for (int i0 = 0; i0 < rows; i0 += kTrimGroup) {
-    float zi[kTrimGroup], rank[kTrimGroup];
+  const float* mine = col_sh + lane;          // this column, stride kTrimCols
+  for (int i0 = group; i0 < rows; i0 += kTrimGroups * kTrimPass) {
+    // rows i_u = i0 + 8u, increasing in u
+    float zi[kTrimPass], rank[kTrimPass];
 #pragma unroll
-    for (int u = 0; u < kTrimGroup; ++u) {
-      zi[u] = (i0 + u < rows) ? mine[(i0 + u) * kTrimCols] : 0.f;
+    for (int u = 0; u < kTrimPass; ++u) {
+      const int i = i0 + kTrimGroups * u;
+      zi[u] = i < rows ? mine[i * kTrimCols] : 0.f;
       rank[u] = 0.f;
     }
-    for (int k = 0; k < rows; ++k) {
-      const float zk = mine[k * kTrimCols];
-      const float ik = incl_sh[k];
+    // z_k ranks below z_i when z_k < z_i, or z_k = z_i and k < i; so for
+    // k < i it is z_k <= z_i and for k >= i z_k < z_i. Segment seg of the
+    // k loop runs from i_(seg-1) to i_seg, where rows u < seg are at or
+    // before k: one compare and a predicated add a pair, in k order.
+    int k = 0;
 #pragma unroll
-      for (int u = 0; u < kTrimGroup; ++u) {
-        const bool less = zk < zi[u] || (zk == zi[u] && k < i0 + u);
-        rank[u] = __fadd_rn(rank[u], less ? ik : 0.f);
+    for (int seg = 0; seg <= kTrimPass; ++seg) {
+      const int k_end = seg < kTrimPass ? min(i0 + kTrimGroups * seg, rows) : rows;
+#pragma unroll 4
+      for (; k < k_end; ++k) {
+        const float zk = mine[k * kTrimCols];
+        const float ik = incl_sh[k];
+#pragma unroll
+        for (int u = 0; u < kTrimPass; ++u) {
+          if (u < seg ? zk < zi[u] : zk <= zi[u]) rank[u] = __fadd_rn(rank[u], ik);
+        }
       }
     }
 #pragma unroll
-    for (int u = 0; u < kTrimGroup; ++u) {
-      const int i = i0 + u;
-      if (i < rows && incl_sh[i] > 0.f && rank[u] >= b && rank[u] <= hi) {
-        num = __fadd_rn(num, __fmul_rn(w_sh[i], zi[u]));
+    for (int u = 0; u < kTrimPass; ++u) {
+      const int i = i0 + kTrimGroups * u;
+      if (i < rows) {
+        keep_sh[i * kTrimCols + lane] =
+            incl_sh[i] > 0.f && rank[u] >= b && rank[u] <= hi;
+      }
+    }
+  }
+  __syncthreads();
+  if (group == 0) {
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < rows; ++i) {
+      if (keep_sh[i * kTrimCols + lane]) {
+        num = __fadd_rn(num, __fmul_rn(w_sh[i], mine[i * kTrimCols]));
         den = __fadd_rn(den, w_sh[i]);
       }
     }
+    mean_sh[lane] = __fdiv_rn(num, fmaxf(den, 1e-30f));
   }
-  const float mean = __fdiv_rn(num, fmaxf(den, 1e-30f));
-  for (int i = 0; i < rows; ++i) {
+  __syncthreads();
+  if (!in) return;
+  const float mean = mean_sh[lane];
+  for (int i = group; i < rows; i += kTrimGroups) {
     const int64_t off = static_cast<int64_t>(i) * n + col;
     out[off] = recv_sh[i] > 0.f ? mean : old[off];
   }
@@ -701,13 +750,16 @@ int mask_uplink_launch(const float* eff, const uint8_t* mask, const float* ef,
 }
 
 // B10. w and incl are (rows,); recv and old may be null (every row
-// receives). The shared slice takes 4 rows (kTrimCols + 3) bytes; above
-// 48 KB the launcher opts in to the larger carve-out (227 KB at most).
+// receives). The shared slice takes rows (4 (kTrimCols + 3) + kTrimCols)
+// + 4 (kTrimCols + 1) bytes; above 48 KB the launcher opts in to the
+// larger carve-out (227 KB at most).
 int trimmed_merge_launch(const float* z, const float* w, const float* incl,
                          const float* recv, const float* old, float* out,
                          int rows, int n, float trim, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(rows) * (kTrimCols + 3) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(rows) * (sizeof(float) * (kTrimCols + 3) + kTrimCols) +
+      sizeof(float) * (kTrimCols + 1);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         trimmed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -715,8 +767,8 @@ int trimmed_merge_launch(const float* z, const float* w, const float* incl,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const unsigned blocks = static_cast<unsigned>((n + kTrimCols - 1) / kTrimCols);
-  trimmed_kernel<<<blocks, kTrimCols, smem, s>>>(z, w, incl, recv, old, out,
-                                                 rows, n, trim);
+  trimmed_kernel<<<blocks, kTrimThreads, smem, s>>>(z, w, incl, recv, old, out,
+                                                    rows, n, trim);
   return static_cast<int>(cudaGetLastError());
 }
 

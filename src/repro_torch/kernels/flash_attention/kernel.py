@@ -7,8 +7,11 @@
 sliding window, logit soft-capping and GQA (query head h reads KV head
 h // (H / Kh)). Fully masked key tiles are skipped. The kernel masks keys
 past T and writes no row past S, so it needs no padding; its tiles are
-64 × 64 where the TPU kernel's are 512 × 512, which changes which tiles
-are skipped but not the result. Head dims 64 and 128 are compiled.
+64 queries × 32 keys where the TPU kernel's are 512 × 512, which changes
+which tiles are skipped but not the result. Its products run on TF32
+tensor cores, each operand split into two TF32 terms (three products),
+within 2e-5 of the plain version on unit-normal inputs. Head dims 64
+and 128 are compiled.
 
 A CPU tensor goes to the plain version (:func:`.ref.attention_ref`); a
 CUDA tensor launches the kernel or raises.

@@ -58,9 +58,10 @@ OUTER = _build.Kernel("outer_apply", _SRC, "outer_apply_launch",
 MAX_ROWS = 12 * 1024
 #: columns of one worker's row per block of the uplink kernels
 TILE = 2048
-#: the robust merge stages an (M, 64) slice and three (M,) vectors in
-#: shared memory: at most 227 KB, so M <= 867
-TRIMMED_MAX_ROWS = 232448 // (4 * (64 + 3))
+#: the robust merge stages an (M, 32) slice, three (M,) vectors, a byte of
+#: keep flag per slice entry and 33 scalars in shared memory: at most
+#: 227 KB, so M <= 1350
+TRIMMED_MAX_ROWS = (232448 - 4 * (32 + 1)) // (4 * (32 + 3) + 32)
 #: columns of the server leaf per block of the outer step
 OUTER_TILE = 1024
 _OUTER_KINDS = {"momentum": 0, "nesterov": 1, "adam": 2}

@@ -12,7 +12,11 @@ values in another order: ~5e-7 measured on unit-normal inputs); gradients
 at rtol 1e-5 / atol 1e-6. On the CPU the wrapper runs its plain version, so
 the kernel route is held against it exactly. The CUDA kernel itself is held
 against the plain version on the card by ``chip_smoke.py`` (phase
-``flash_kernels``).
+``flash_kernels``), within TOL_FLASH = 2e-5 on unit-normal inputs. Its
+products run on TF32 tensor cores in a three-term split; the TF32 cases
+below emulate that on the CPU (``_attention_tf32``) at the language-model
+path's shape and show that the split meets TOL_FLASH against the JAX
+package's ``attention_ref`` where one-term TF32 does not.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ import torch
 
 from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
 from repro.kernels.flash_attention.ops import attention as jax_attention
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.attention import _chunked_attention as jax_chunked
 from repro.models.attention import _flash_self_attention as jax_self
 from repro_torch.kernels import _build
@@ -30,6 +35,11 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.attention import _chunked_attention, _flash_self_attention
 
 OUT_ATOL = 2e-6
+# chip_smoke.py's bar for the CUDA kernel against the plain version
+TOL_FLASH = 2e-5
+# the language-model path's shape: qwen2-0.5b's 14 query heads over 2 KV
+# heads, head_dim 64, one causal sequence of 1024
+PATH_SHAPE = dict(b=1, h=14, kh=2, s=1024, d=64)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 
 # (B, H, Kh, S, D, options): the path's causal GQA, a window, a soft cap,
@@ -161,3 +171,87 @@ def test_chunked_attention_matches_jax(case, causal):
                              torch.tensor(v), **opts)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=OUT_ATOL)
+
+
+def _round_tf32(x):
+    """Rounds float32 ``x`` to TF32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest value with 10 explicit mantissa bits (the 13 low bits cleared),
+    ties away from zero. Finite inputs."""
+    bits = x.float().contiguous().view(torch.int32)
+    # sign-magnitude: adding half the dropped range rounds the magnitude
+    # half up, which is ties away from zero for either sign
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_einsum(eq, a, b, terms):
+    """``torch.einsum`` of two operands as TF32 tensor cores take them,
+    exact products summed in f32: ``terms=1`` is plain TF32 (a_hi·b_hi),
+    ``terms=3`` the kernel's split a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with
+    x_hi = tf32(x), x_lo = tf32(x − x_hi) (the dropped a_lo·b_lo is ~2⁻²²
+    of a·b)."""
+    a_hi, b_hi = _round_tf32(a), _round_tf32(b)
+    if terms == 1:
+        return torch.einsum(eq, a_hi, b_hi)
+    a_lo, b_lo = _round_tf32(a - a_hi), _round_tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _attention_tf32(q, k, v, terms):
+    """Causal GQA ``attention_ref`` with both products (Q·Kᵀ and P·V) taken
+    by :func:`_tf32_einsum`; the softmax in f32, as the reference's."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    qg = q.reshape(b, kh, h // kh, s, d)
+    logits = _tf32_einsum("bkgsd,bktd->bkgst", qg, k, terms) * d ** -0.5
+    idx = torch.arange(s)
+    logits = torch.where(idx[None, :] <= idx[:, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    return _tf32_einsum("bkgst,bktd->bkgsd", probs, v, terms).reshape(
+        b, h, s, d)
+
+
+def test_round_tf32_is_nearest_ties_away():
+    """``_round_tf32`` against float64 arithmetic: the nearest multiple of
+    the value's TF32 ulp (2^(e - 11) for x = m·2^e, 1/2 <= |m| < 1), ties
+    away from zero; on random values and on exact ties of both signs."""
+    rs = np.random.RandomState(5)
+    x = (rs.randn(4096) * 10.0 ** rs.uniform(-6, 6, 4096)).astype(np.float32)
+    ulp = np.ldexp(1.0, np.frexp(x.astype(np.float64))[1] - 11)
+    ties = (np.float32(rs.randint(1024, 2048, 64)) + np.float32(0.5)) * ulp[:64]
+    x = np.concatenate([x, ties.astype(np.float32), -ties.astype(np.float32)])
+    x64 = x.astype(np.float64)
+    ulp = np.ldexp(1.0, np.frexp(x64)[1] - 11)
+    want = np.sign(x64) * np.floor(np.abs(x64) / ulp + 0.5) * ulp
+    got = _round_tf32(torch.tensor(x)).numpy().astype(np.float64)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def path_inputs():
+    """Unit-normal q, k, v at the path's shape, and the JAX package's
+    ``attention_ref`` on them (causal)."""
+    b, h, kh, s, d = (PATH_SHAPE[k] for k in ("b", "h", "kh", "s", "d"))
+    rs = np.random.RandomState(7)
+    q = rs.randn(b, h, s, d).astype(np.float32)
+    k = rs.randn(b, kh, s, d).astype(np.float32)
+    v = rs.randn(b, kh, s, d).astype(np.float32)
+    want = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True))
+    return q, k, v, want
+
+
+@pytest.mark.parametrize("terms,within", [(3, True), (1, False)],
+                         ids=["split_3xtf32", "plain_tf32"])
+def test_tf32_products_against_the_kernel_tolerance(path_inputs, terms,
+                                                    within):
+    """Attention with both products in TF32, emulated on the CPU: the
+    kernel's three-term split stays within TOL_FLASH of the JAX package's
+    ``attention_ref`` at the path's shape (~1.2e-6 measured); one-term TF32
+    misses it by far (~1.2e-3), which is why the kernel splits."""
+    q, k, v, want = path_inputs
+    got = _attention_tf32(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          terms)
+    err = float(np.abs(got.numpy() - want).max())
+    assert np.isfinite(err)
+    assert (err <= TOL_FLASH) == within, err
