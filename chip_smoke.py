@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sync-wrappers   # only the sync wrappers' times
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX. Phases, one JSON line each:
@@ -31,8 +32,14 @@ nothing of JAX. Phases, one JSON line each:
    into them (``ms``). A ``fresh_outputs`` line says whether the fresh
    outputs inside each capture share one block. ``merge_shapes`` holds the
    merge at M in {1, 4, 63, 64} x n in {16384, 16421}, unit weights,
-   normalised and gated, reruns bit-identical; ``merge_lm_leaf`` times it
-   and the matmul at the lm path's largest leaf, (4, 151936 x 896);
+   normalised and gated, reruns bit-identical; ``merge_fleet`` at M = 16384
+   (its weights in the opt-in shared memory); ``merge_lm_leaf`` times it
+   and the matmul at the lm path's largest leaf, (4, 151936 x 896). The
+   scale pass (B6) is also held and timed at that leaf (a ``kernel`` line
+   with its ``shape``). Beside B6 and the outer step (B11), whose small
+   shapes take little more than a launch, ``launch_floor_ms`` is the time
+   of an empty kernel on the same grid, in the same harness, with the same
+   number of launches;
 4. main path — the bilinear game at n=16384 (``game``: with the oracle
    GEMM and the noise draw timed alone) through ``PSEngine`` with M=64
    workers, K=50 local steps, R=5 rounds, fused step and merge kernels
@@ -57,8 +64,15 @@ nothing of JAX. Phases, one JSON line each:
 7. robust — the same game with a hostile fleet and the server's outer
    optimizer (``robust_kernels`` first holds the robust merge and the outer
    step against their plain versions, ties and a dead row included, the
-   merge's reruns bit-identical and its fleets up to the largest the
-   wrapper accepts in ``trimmed_fleets``): a
+   merge's reruns bit-identical; its fleets from 256 to 10000 workers in
+   ``trimmed_fleets``, past 1350 on the streamed path; its two paths forced
+   at M = 64 and 1350, bit-identical (``trimmed_paths``); the streamed path
+   timed at (2048, 16384) and (10000, 16384); the outer step also at the
+   embedding leaf (1, 151936 x 896); then ``wrapper`` lines time the sync
+   wrappers as a caller pays for them, each call making its own outputs in
+   a CUDA graph -- ``--sync-wrappers`` runs only these, after the device
+   and build phases, and prints no result line, so that a tree whose
+   kernels take other arguments can be timed by this script): a
    sign-flip attack on 20% of the fleet under the plain mean, a trimmed
    mean, the coordinate median and multi-Krum; a clean fleet under outer
    Nesterov and outer Adam; and everything stacked (attack, DP, q8 with
@@ -170,6 +184,12 @@ N_RAGGED = 16421
 # qwen2-0.5b's (151936, 896) embedding stacked over its M = 4 workers.
 MERGE_ROWS = (1, 4, 63, 64)
 LM_LEAF = (4, 151936 * 896)
+# B5 past 12288 workers, and the robust merge (B10) on fleets of up to
+# 10000 (``benchmarks/bench_fleet.py``'s largest), the streamed path past
+# 1350; the streamed path timed at TRIMMED_TIMED x n.
+MERGE_FLEET = (16384, 1031)
+TRIMMED_FLEETS = {256: 9, 512: 10, 1350: 12, 1351: 13, 2048: 14, 10000: 15}
+TRIMMED_TIMED = (2048, 10000)
 # G0 is the method's guess of the gradient bound G; for this game
 # G ≈ ‖A‖₂·√n ≈ 1.15·n. With G0 = 1 the first steps are ~10⁴ times the
 # Lipschitz step and ulp-level differences between any two implementations
@@ -350,6 +370,27 @@ def library_times(name, library, library_name, sets, wrapper, ms,
         fields.update(library_same_out_ms=same_ms,
                       beats_library_same_out=ms < same_ms)
     return library_ms, fields
+
+
+def launch_floor_ms(blocks: int, calls: int) -> float:
+    """``graph_ms`` of ``calls`` launches of an empty kernel on ``blocks``
+    blocks of 256 threads (``empty_launch`` in ``csrc/sync_compress.cu``):
+    the least a launch of that grid takes in the harness."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.library("sync_compress.cu").empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(blocks, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"empty_launch failed with CUDA error {err}")
+
+    return graph_ms([launch] * calls)
 
 
 def phase_device():
@@ -572,6 +613,9 @@ def phase_codec_kernels(results):
     src = "src/repro_torch/csrc/sync_compress.cu"
     tiles = (N + sk.TILE - 1) // sk.TILE
     live = M - 1
+    stats_tile = sk.stats_tile(M, N, sk._build.sm_count(dev))
+    stats_tiles = -(-N // stats_tile)
+    stats_tickets = sk.tickets("uplink_stats", sk.STATS_TICKETS, dev)
 
     def inputs(seed, n):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -594,7 +638,9 @@ def phase_codec_kernels(results):
             msg=z * w[:, None], old=u(M, n),
             out=torch.empty(M, n, device=dev),
             out2=torch.empty(M, n, device=dev),
-            part=torch.empty(M, tiles, device=dev))
+            part=torch.empty(M, tiles, device=dev),
+            stats_part=torch.empty(M * stats_tiles, device=dev),
+            stats_out=torch.empty(M, device=dev))
 
     def stream(x):
         return sk._build.stream_of(x["z"])
@@ -609,15 +655,17 @@ def phase_codec_kernels(results):
         "uplink_stats": dict(
             replaces="src/repro/kernels/sync_compress/kernel.py:329",
             gated=(False,),
-            # read z, ef, w; write (M, tiles) partial maxima
-            bytes=4 * (2 * M * N + M + M * tiles), flops=3 * M * N,
+            # read z, ef, w; write the (M,) maxima
+            bytes=4 * (2 * M * N + 2 * M), flops=3 * M * N,
             int_ops=0,
             run=lambda x, g: (sk.uplink_stats(x["z"], x["w"], x["ef"]),),
             plain=lambda x, g: (sr.uplink_stats_ref(x["z"], x["ef"],
                                                     x["w"]),),
             launch=lambda x: sk.STATS(
                 x["z"].data_ptr(), x["w"].data_ptr(), x["ef"].data_ptr(),
-                x["part"].data_ptr(), M, N, sk.TILE, 1, stream(x))),
+                x["stats_part"].data_ptr(), stats_tickets.data_ptr(),
+                x["stats_out"].data_ptr(), M, N, stats_tile, 1, stream(x)),
+            blocks=M * stats_tiles),
         "quantize_uplink": dict(
             replaces="src/repro/kernels/sync_compress/kernel.py:344",
             gated=(False, True),
@@ -695,8 +743,12 @@ def phase_codec_kernels(results):
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         )
+        if "blocks" in c:
+            results[name]["launch_floor_ms"] = launch_floor_ms(
+                c["blocks"], 2 * len(sets))
         emit("kernel", **results[name],
              gb_per_s=c["bytes"] / (ms * 1e-3) / 1e9, **extra)
+    stats_lm_leaf()
 
     # B5's gated branch as the codec path calls it: the w-scaled messages,
     # unit weights, rows with recv = 0 keep old (sum order differs from
@@ -723,6 +775,51 @@ def phase_codec_kernels(results):
     emit("kernel_case", name="merge_stacked", case="recv/old gated, "
          "unit weights, one row keeps old", max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def stats_lm_leaf():
+    """B6 at the language model's largest leaf, ``LM_LEAF``, with w and
+    ef: held against its plain version (exactly) and timed over two input
+    sets, each larger than the L2, beside the launch floor of its grid; its
+    tensors are freed after."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+    from repro_torch.kernels.sync_compress import ref as sr
+
+    dev = torch.device("cuda")
+    m, n = LM_LEAF
+    tile = sk.stats_tile(m, n, sk._build.sm_count(dev))
+    blocks = m * -(-n // tile)
+    tickets = sk.tickets("uplink_stats", sk.STATS_TICKETS, dev)
+    sets = []
+    for i in range(2):
+        gen = torch.Generator(device=dev).manual_seed(500 + i)
+        z = torch.rand(m, n, generator=gen, device=dev) * 2 - 1
+        ef = (torch.rand(m, n, generator=gen, device=dev) * 2 - 1) * 1e-3
+        w = torch.rand(m, generator=gen, device=dev) + 0.5
+        sets.append(dict(z=z, ef=ef, w=w / w.sum(),
+                         part=torch.empty(blocks, device=dev),
+                         out=torch.empty(m, device=dev)))
+    x = sets[0]
+    err = max_abs(sk.uplink_stats(x["z"], x["w"], x["ef"]),
+                  sr.uplink_stats_ref(x["z"], x["ef"], x["w"]))
+    check(err == 0.0, f"uplink_stats {LM_LEAF}: max abs err {err}")
+    calls = [lambda x=x: sk.STATS(
+        x["z"].data_ptr(), x["w"].data_ptr(), x["ef"].data_ptr(),
+        x["part"].data_ptr(), tickets.data_ptr(), x["out"].data_ptr(), m, n,
+        tile, 1, sk._build.stream_of(x["z"])) for x in sets * 2]
+    ms = graph_ms(calls)
+    plain_ms = time_ms(lambda: sr.uplink_stats_ref(x["z"], x["ef"], x["w"]),
+                       reps=2, trials=3)
+    # read z, ef, w; write the (M,) maxima
+    b_ms, b_by = bound(4 * (2 * m * n + 2 * m), 3 * m * n)
+    emit("kernel", name="uplink_stats", shape=[m, n], route="cuda",
+         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+         bound_by=b_by, launch_floor_ms=launch_floor_ms(blocks, len(calls)),
+         library_ms=None, blocks=blocks, sets=len(sets))
+    del sets, x, calls
+    torch.cuda.empty_cache()
 
 
 def phase_merge_shapes():
@@ -780,6 +877,23 @@ def phase_merge_shapes():
         rows.append(row)
     emit("merge_shapes", tol=TOL_ELEM, reruns_bit_identical=True,
          cases=rows)
+
+    # A fleet past 12288 workers: its 64 KB of weights take the opt-in
+    # shared memory; 16384 normalised terms a column, in another order than
+    # torch.sum (TOL_STAT).
+    m, n = MERGE_FLEET
+    x = inputs(5, m, n)
+    got = sk.merge_stacked(x["z"], x["w"], normalize=True)
+    again = sk.merge_stacked(x["z"], x["w"], normalize=True)
+    want = sr.merge_ref(x["z"], x["w"], normalize=True)
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    check(err <= TOL_STAT, f"merge_stacked {MERGE_FLEET}: max abs err {err}")
+    check(torch.equal(got, again), f"merge_stacked {MERGE_FLEET}: reruns "
+                                   "differ")
+    emit("merge_fleet", shape=[m, n], max_rows=sk.MAX_ROWS, max_abs_err=err,
+         tol=TOL_STAT, reruns_bit_identical=True)
+    del x, got, again, want
 
     m, n = LM_LEAF
     sets = [inputs(300 + i, m, n) for i in range(2)]
@@ -1032,10 +1146,11 @@ def phase_robust_kernels(results):
     versions, and their times. B10: trims 12 and 31, non-uniform weights,
     with and without a dead row (incl = recv = 0, keeps ``old``), and on
     inputs rounded to nine levels (ties everywhere), reruns bit-identical;
-    fleets of 256 and 512 workers and the largest the wrapper accepts
-    (``TRIMMED_MAX_ROWS``; 512 and up take the opt-in shared memory), and a
-    fleet too large, which must be refused. B11: each policy at t = 0 and
-    t = 5."""
+    fleets of ``TRIMMED_FLEETS`` workers (512 and up take the opt-in shared
+    memory, past 1350 the streamed path); both paths forced on the same
+    inputs at M = 64 and 1350, bit-identical; the streamed path timed at
+    ``TRIMMED_TIMED`` workers. B11: each policy at t = 0 and t = 5, reruns
+    bit-identical; timed at the game's (1, n) and at the embedding leaf."""
     import torch
 
     from repro_torch.kernels.sync_compress import kernel as sk
@@ -1045,20 +1160,31 @@ def phase_robust_kernels(results):
     dev = torch.device("cuda")
     src = "src/repro_torch/csrc/sync_compress.cu"
 
-    def trim_inputs(seed, n, dead=False, ties=False):
+    def trim_inputs(seed, n, dead=False, ties=False, m=M):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        z = torch.rand(M, n, generator=gen, device=dev) * 2 - 1
+        z = torch.rand(m, n, generator=gen, device=dev) * 2 - 1
         if ties:
             z = torch.round(z * 4) / 4
-        w = torch.rand(M, generator=gen, device=dev) * 1.9 + 0.1
-        incl = torch.ones(M, device=dev)
+        w = torch.rand(m, generator=gen, device=dev) * 1.9 + 0.1
+        incl = torch.ones(m, device=dev)
         recv = None
         if dead:
             w[DEAD_ROW] = incl[DEAD_ROW] = 0.0
             recv = incl.clone()
         return dict(z=z, w=w, incl=incl, recv=recv,
-                    old=torch.rand(M, n, generator=gen, device=dev),
-                    out=torch.empty(M, n, device=dev))
+                    old=torch.rand(m, n, generator=gen, device=dev),
+                    out=torch.empty(m, n, device=dev))
+
+    def trimmed(x, trim, path):
+        """One launch of the path forced (0 staged, 1 streamed) into
+        ``x["out"]``."""
+        m, n = x["z"].shape
+        gated = x["recv"] is not None
+        sk.TRIMMED(x["z"].data_ptr(), x["w"].data_ptr(), x["incl"].data_ptr(),
+                   x["recv"].data_ptr() if gated else None,
+                   x["old"].data_ptr() if gated else None, x["out"].data_ptr(),
+                   m, n, float(trim), path, sk._build.stream_of(x["z"]))
+        return x["out"]
 
     err = 0.0
     for n in (N, N_RAGGED):
@@ -1085,45 +1211,55 @@ def phase_robust_kernels(results):
                         check(torch.equal(got[DEAD_ROW], x["old"][DEAD_ROW]),
                               "trimmed_merge_stacked: the dead row did not "
                               "keep old")
+    check(err <= TOL_ELEM, f"trimmed_merge_stacked: max abs err {err}")
     # Fleets past the default 48 KB of shared memory take the opt-in
-    # carve-out (M = 512 needs 86 KB; M = 256 43 KB); past 227 KB the
-    # wrapper refuses. The largest fleet it accepts sums ~800 survivors,
+    # carve-out (M = 512 needs 86 KB; M = 256 43 KB); past 1350 workers the
+    # streamed path. A fleet of 1350 and more sums ~800 and more survivors
     # in another order than the plain version: held at TOL_STAT.
     big_fleets = {}
-    for rows, seed in ((256, 9), (512, 10), (sk.TRIMMED_MAX_ROWS, 12)):
+    for rows, seed in TRIMMED_FLEETS.items():
         gen = torch.Generator(device=dev).manual_seed(seed)
         z = torch.rand(rows, 1031, generator=gen, device=dev)
         w = torch.rand(rows, generator=gen, device=dev) + 0.5
         incl = torch.ones(rows, device=dev)
         trim = rows // 5
         got = sk.trimmed_merge_stacked(z, w, incl, trim=trim)
+        again = sk.trimmed_merge_stacked(z, w, incl, trim=trim)
         want = sr.trimmed_merge_ref(z, w, incl, trim=trim)
         torch.cuda.synchronize()
         big_fleets[rows] = max_abs(got, want)
-    err = max(err, big_fleets[256], big_fleets[512])
-    check(big_fleets[sk.TRIMMED_MAX_ROWS] <= TOL_STAT,
-          f"trimmed_merge_stacked {sk.TRIMMED_MAX_ROWS} rows: max abs err "
-          f"{big_fleets[sk.TRIMMED_MAX_ROWS]}")
-    emit("trimmed_fleets", max_rows=sk.TRIMMED_MAX_ROWS,
+        tol = TOL_ELEM if rows <= 512 else TOL_STAT
+        check(big_fleets[rows] <= tol, f"trimmed_merge_stacked {rows} rows: "
+                                       f"max abs err {big_fleets[rows]}")
+        check(torch.equal(got, again),
+              f"trimmed_merge_stacked {rows} rows: a rerun differs")
+    del z, w, incl, got, again, want
+    emit("trimmed_fleets", staged_rows=sk.TRIMMED_STAGED_ROWS,
+         paths={str(r): sk.trimmed_path(r) for r in TRIMMED_FLEETS},
          max_abs_err={str(k): v for k, v in big_fleets.items()},
-         tol={"256": TOL_ELEM, "512": TOL_ELEM,
-              str(sk.TRIMMED_MAX_ROWS): TOL_STAT})
-    big = sk.TRIMMED_MAX_ROWS + 1
-    try:
-        sk.trimmed_merge_stacked(torch.zeros(big, 8, device=dev),
-                                 torch.ones(big, device=dev),
-                                 torch.ones(big, device=dev), trim=1)
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused, f"trimmed_merge_stacked accepted {big} rows")
-    check(err <= TOL_ELEM, f"trimmed_merge_stacked: max abs err {err}")
+         tol={str(r): TOL_ELEM if r <= 512 else TOL_STAT
+              for r in TRIMMED_FLEETS}, reruns_bit_identical=True)
+    # Both paths on the same inputs: the same bits where both run.
+    cases = []
+    for m, n, ties, dead in ((M, N_RAGGED, False, True),
+                             (M, N_RAGGED, True, True), (M, N, True, False),
+                             (sk.TRIMMED_STAGED_ROWS, 1031, True, False),
+                             (sk.TRIMMED_STAGED_ROWS, 1031, False, False)):
+        x = trim_inputs(17, n, dead, ties, m=m)
+        for trim in (m // 5, (m - 1) // 2):
+            staged = trimmed(x, trim, sk.TRIMMED_STAGED).clone()
+            streamed = trimmed(x, trim, sk.TRIMMED_STREAMED)
+            torch.cuda.synchronize()
+            check(torch.equal(staged, streamed),
+                  f"trimmed_merge_stacked {(m, n, trim, ties, dead)}: the "
+                  "staged and streamed paths differ")
+            cases.append([m, n, trim, ties, dead])
+    emit("trimmed_paths", bit_identical=True, cases=cases)
+    del x, staged, streamed
     sets = [trim_inputs(300 + i, N) for i in range(12)]
     for trim in TRIMS:
-        ms = graph_ms([lambda x=x: sk.TRIMMED(
-            x["z"].data_ptr(), x["w"].data_ptr(), x["incl"].data_ptr(), None,
-            None, x["out"].data_ptr(), M, N, float(trim),
-            sk._build.stream_of(x["z"])) for x in sets * 2])
+        ms = graph_ms([lambda x=x: trimmed(x, trim, sk.trimmed_path(M))
+                       for x in sets * 2])
         plain_ms = graph_ms([lambda x=x: sr.trimmed_merge_ref(
             x["z"], x["w"], x["incl"], trim=trim) for x in sets])
         # read z and the (M,) vectors, write the (M, n) broadcast; every
@@ -1139,10 +1275,30 @@ def phase_robust_kernels(results):
         emit("kernel", **row, trim=trim,
              library="none: torch.median returns the lower middle for an "
                      "even M, and takes no weights or trim")
+    del sets
+    for m in TRIMMED_TIMED:             # the streamed path at its fleets
+        x = trim_inputs(13, N, m=m)
+        trim = m // 5
+        ms = graph_ms([lambda: trimmed(x, trim, sk.TRIMMED_STREAMED)],
+                      trials=3)
+        plain_ms = None
+        if m <= 2048:                   # 1.3 s a call; at 10000 ~30 s
+            plain_ms = time_ms(lambda: sr.trimmed_merge_ref(
+                x["z"], x["w"], x["incl"], trim=trim), reps=1, trials=1)
+        b_ms, b_by = bound(4 * (2 * m * N + 2 * m), 0.0,
+                           issue_ops=TRIM_PAIR_OPS * m * (m - 1) // 2 * N)
+        emit("kernel", name="trimmed_merge_stacked", shape=[m, N],
+             path="streamed", route="cuda", trim=trim, ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=None, max_abs_err=big_fleets[m])
+        del x
+    torch.cuda.empty_cache()
 
     policies = (("momentum", ServerMomentum(lr=0.7, beta=0.9)),
                 ("nesterov", ServerNesterov(lr=1.0, beta=0.3)),
                 ("adam", ServerAdam()), ("adam_lr", ServerAdam(lr=0.3)))
+    sms = sk._build.sm_count(dev)
+    ticket = sk.tickets("outer_apply", 1, dev)
 
     def outer_inputs(seed, n, slots):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1154,8 +1310,8 @@ def phase_robust_kernels(results):
         mom = (u(),) if slots == 1 else (u(), u(0.0, 1.0))
         return dict(g=u(), z=u(), mom=mom, zo=torch.empty(1, n, device=dev),
                     mo=tuple(torch.empty(1, n, device=dev) for _ in mom),
-                    part=torch.empty((n + sk.OUTER_TILE - 1) // sk.OUTER_TILE,
-                                     device=dev))
+                    part=torch.empty(sk.outer_blocks(n, sms), device=dev),
+                    dsq=torch.empty((), device=dev))
 
     err = rel = 0.0
     for label, pol in policies:
@@ -1165,48 +1321,154 @@ def phase_robust_kernels(results):
                 tt = torch.tensor(float(t), device=dev)
                 got = sk.outer_apply(x["g"], x["z"], x["mom"], tt,
                                      spec=pol.spec)
+                again = sk.outer_apply(x["g"], x["z"], x["mom"], tt,
+                                       spec=pol.spec)
                 want = sr.outer_apply_ref(x["g"], x["z"], x["mom"], tt,
                                           spec=pol.spec)
                 torch.cuda.synchronize()
                 for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
                     err = max(err, max_abs(a, b))
                 rel = max(rel, rel_err(got[2], want[2]))
-    check(err <= TOL_ELEM, f"outer_apply: max abs err {err}")
+                check(torch.equal(got[2], again[2]),
+                      f"outer_apply {label} {n}: delta_sq reruns differ")
+    check(err == 0.0, f"outer_apply: max abs err {err} (must be 0)")
     check(rel <= TOL_REL_STAT, f"outer_apply: delta_sq rel err {rel}")
-    for label, pol in policies[:3]:
-        spec = pol.spec
-        sets = [outer_inputs(400 + i, N, pol.slots)
-                for i in range(OUTER_SETS)]
-        t5 = torch.tensor(5.0, device=dev)
-        bias = (sr.adam_bias(spec[2], spec[3], t5) if label == "adam"
-                else None)
 
-        def launch(x, spec=spec, bias=bias):
+    def outer_time(spec, sets, n):
+        """ms of the bare launch over ``sets`` (twice over when they are
+        few), the plain version's, the bound and the launch floor."""
+        t5 = torch.tensor(5.0, device=dev)
+        adam = spec[0] == "adam"
+        bias = sr.adam_bias(spec[2], spec[3], t5) if adam else None
+        blocks = sk.outer_blocks(n, sms)
+
+        def launch(x):
             m1 = x["mom"][1].data_ptr() if len(x["mom"]) == 2 else None
             mo1 = x["mo"][1].data_ptr() if len(x["mo"]) == 2 else None
             sk.OUTER(x["g"].data_ptr(), x["z"].data_ptr(),
                      x["mom"][0].data_ptr(), m1,
                      None if bias is None else bias.data_ptr(),
                      x["zo"].data_ptr(), x["mo"][0].data_ptr(), mo1,
-                     x["part"].data_ptr(), N, sk.OUTER_TILE,
+                     x["part"].data_ptr(), ticket.data_ptr(),
+                     x["dsq"].data_ptr(), n, blocks, 1,
                      *sk.outer_scalars(spec), sk._build.stream_of(x["z"]))
 
-        ms = graph_ms([lambda x=x: launch(x) for x in sets])
-        plain_ms = graph_ms([lambda x=x: sr.outer_apply_ref(
-            x["g"], x["z"], x["mom"], t5, spec=spec) for x in sets[:12]])
-        rows_moved = (3 + 2) if pol.slots == 1 else (4 + 3)
-        parts = (N + sk.OUTER_TILE - 1) // sk.OUTER_TILE
-        flops = (6 if pol.slots == 1 else 14) * N
-        b_ms, b_by = bound(4 * (rows_moved * N + parts), flops)
+        calls = [lambda x=x: launch(x) for x in sets * (1 if len(sets) > 12
+                                                        else 4)]
+        ms = graph_ms(calls)
+        if len(sets) > 12:
+            plain_ms = graph_ms([lambda x=x: sr.outer_apply_ref(
+                x["g"], x["z"], x["mom"], t5, spec=spec) for x in sets[:12]])
+        else:
+            x = sets[0]
+            plain_ms = time_ms(lambda: sr.outer_apply_ref(
+                x["g"], x["z"], x["mom"], t5, spec=spec), reps=2, trials=3)
+        rows_moved = (4 + 3) if adam else (3 + 2)
+        flops = (14 if adam else 6) * n
+        # read g, z and the moments, write z' and the moments and Σ Δ²
+        b_ms, b_by = bound(4 * (rows_moved * n + 1), flops)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    launch_floor_ms=launch_floor_ms(blocks, len(calls)),
+                    blocks=blocks)
+
+    for label, pol in policies[:3]:
+        sets = [outer_inputs(400 + i, N, pol.slots)
+                for i in range(OUTER_SETS)]
+        timed = outer_time(pol.spec, sets, N)
+        del sets
         row = dict(name="outer_apply", route="cuda", source=src,
                    replaces="src/repro/kernels/sync_compress/kernel.py:488",
-                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   launches=0, max_abs_err=err, ms=timed["ms"],
+                   plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
+                   bound_by=timed["bound_by"], library_ms=None,
+                   launch_floor_ms=timed["launch_floor_ms"])
         if label == "nesterov":
             results["outer_apply"] = row
         emit("kernel", **row, policy=label, delta_sq_rel_err=rel,
+             blocks=timed["blocks"],
              library="none: no PyTorch call applies an outer momentum, "
                      "Nesterov or Adam step and sums the delta's squares")
+    # The embedding leaf: one input set is larger than the L2.
+    n = LM_LEAF[1]
+    for label, pol in (policies[1], policies[2]):
+        sets = [outer_inputs(600 + i, n, pol.slots) for i in range(2)]
+        x, t5 = sets[0], torch.tensor(5.0, device=dev)
+        got = sk.outer_apply(x["g"], x["z"], x["mom"], t5, spec=pol.spec)
+        want = sr.outer_apply_ref(x["g"], x["z"], x["mom"], t5,
+                                  spec=pol.spec)
+        torch.cuda.synchronize()
+        lm_err = max(max_abs(a, b)
+                     for a, b in zip((got[0], *got[1]), (want[0], *want[1])))
+        lm_rel = rel_err(got[2], want[2])
+        check(lm_err == 0.0 and lm_rel <= TOL_REL_STAT,
+              f"outer_apply {label} (1, {n}): max abs err {lm_err}, delta_sq "
+              f"rel err {lm_rel}")
+        del got, want, x
+        timed = outer_time(pol.spec, sets, n)
+        emit("kernel", name="outer_apply", shape=[1, n], policy=label,
+             route="cuda", max_abs_err=lm_err, delta_sq_rel_err=lm_rel,
+             library_ms=None, sets=len(sets), **timed)
+        del sets
+        torch.cuda.empty_cache()
+
+
+def phase_sync_wrappers():
+    """The sync kernels through their wrappers, as a caller pays for them:
+    each call makes its own outputs in a CUDA graph (``fresh_graph_ms``),
+    cycling over inputs larger than the L2; B5 and B10 at (M, N), B6 at
+    (M, N) and ``LM_LEAF``, B11 (Nesterov, Adam) at (1, N) and the
+    embedding leaf. Whatever a wrapper launches besides its kernel (a
+    reduction, a sum) is in its time. It calls only the wrappers, so
+    ``python3 chip_smoke.py --sync-wrappers`` times another tree's the same
+    way."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+    from repro_torch.ps import ServerAdam, ServerNesterov
+
+    dev = torch.device("cuda")
+
+    def rand(gen, *shape):
+        return torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+
+    def fleet(seed, m, n):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        w = rand(gen, m) + 1.5
+        return dict(z=rand(gen, m, n), ef=rand(gen, m, n) * 1e-3,
+                    w=w / w.sum(), incl=torch.ones(m, device=dev))
+
+    def server(seed, n, slots):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return dict(g=rand(gen, 1, n), z=rand(gen, 1, n),
+                    mom=tuple(rand(gen, 1, n).abs() for _ in range(slots)))
+
+    t5 = torch.tensor(5.0, device=dev)
+    nesterov, adam = ServerNesterov(lr=1.0, beta=0.3), ServerAdam()
+    cases = (
+        ("merge_stacked", (M, N), lambda x: sk.merge_stacked(x["z"], x["w"])),
+        ("uplink_stats", (M, N),
+         lambda x: sk.uplink_stats(x["z"], x["w"], x["ef"])),
+        ("trimmed_merge_stacked", (M, N), lambda x: sk.trimmed_merge_stacked(
+            x["z"], x["w"], x["incl"], trim=TRIMS[0])),
+        ("uplink_stats", LM_LEAF,
+         lambda x: sk.uplink_stats(x["z"], x["w"], x["ef"])),
+    )
+    for name, (m, n), call in cases:
+        count = 2 if n > N else 12
+        sets = [fleet(700 + i, m, n) for i in range(count)]
+        ms, _ = fresh_graph_ms(call, sets * (2 if count > 2 else 4))
+        emit("wrapper", name=name, shape=[m, n], graph_ms=ms, sets=count)
+        del sets
+    for pol, n in itertools.product((nesterov, adam), (N, LM_LEAF[1])):
+        count = 2 if n > N else OUTER_SETS
+        sets = [server(800 + i, n, pol.slots) for i in range(count)]
+        ms, _ = fresh_graph_ms(lambda x, spec=pol.spec: sk.outer_apply(
+            x["g"], x["z"], x["mom"], t5, spec=spec)[0],
+            sets * (4 if count == 2 else 1))
+        emit("wrapper", name="outer_apply", policy=pol.spec[0], shape=[1, n],
+             graph_ms=ms, sets=count)
+        del sets
+    torch.cuda.empty_cache()
 
 
 def phase_robust(results, game):
@@ -1908,10 +2170,14 @@ def main() -> int:
 
     phase_device()
     phase_build()
+    if sys.argv[1:] == ["--sync-wrappers"]:
+        phase_sync_wrappers()
+        return 0
     results = phase_kernels()
     phase_codec_kernels(results)
     phase_merge_shapes()
     phase_robust_kernels(results)
+    phase_sync_wrappers()
     phase_flash_kernels(results)
     phase_ssd_kernels(results)
     game = phase_main(results)

@@ -33,8 +33,9 @@
 // one slice of whole columns, the first design's shape. Sum order: rows in
 // order within a slice, then the slices in order; fixed, with no atomics, so
 // reruns are bit-identical (S = 1 is the first design's order). The weights,
-// normalised once per block when asked, sit in shared memory; the ragged
-// tail is masked by the column bound.
+// normalised once per block when asked, sit in shared memory (above 48 KB
+// the launcher opts in to the larger carve-out, so M <= 57088 at 227 KB);
+// the ragged tail is masked by the column bound.
 //
 // The codec uplink kernels replace the Pallas kernels of the same file that
 // run through _uplink_call (pallas_call :313):
@@ -54,10 +55,36 @@
 // Design: the grid is (column tiles x workers). A block owns one tile of one
 // worker's row and reads that worker's scalars once; each thread owns
 // columns of the tile (float4 when the row length and pointers allow it),
-// the ragged tail is masked by the column bound, and nothing uses atomics.
-// stats writes one partial maximum per block into (M, tiles) and the caller
-// takes the maximum over the tiles (exact in any order). A dead worker's
-// block reads no payload: it writes sent = 0 and copies its frozen residual.
+// the ragged tail is masked by the column bound, and no sum uses atomics.
+// A dead worker's block reads no payload: it writes sent = 0 and copies its
+// frozen residual.
+//
+// stats (B6) finishes each row in the same launch. What limited the first
+// design (tiles of 2048 columns, a loop of float4 loads, partial maxima
+// that the wrapper reduced with torch.amax): at (64, 16384) it reads 8 MiB,
+// 2.5 us at 3.35 TB/s, and was held back by fixed costs, not bandwidth --
+// two dependent round trips to memory per thread, then a second launch;
+// 5.07 us on an H100 80GB HBM3 at 700 W for the first launch alone. Now a
+// thread owns kStatsCols columns of each pass over its tile and issues all
+// their loads (z and ef) before its first fmaxf; the wrapper sizes the
+// tiles (a multiple of the kStatsStep columns of one pass) so that the grid
+// is one wave of at most 4 blocks an SM (at (64, 16384) 4 tiles a row, 256
+// blocks of one pass each; at a language-model leaf of 4 rows, 132 tiles a
+// row, each a loop of passes). A block writes its maximum to part[m, tile];
+// the row's last block to arrive, told by a per-row ticket, takes the
+// maximum of the row's partials, writes out[m] and resets the ticket to 0,
+// so the next launch, or a CUDA graph's replay, finds it at 0. A maximum is
+// exact in any order. The tickets are an atomic counter, never a sum; two
+// launches that share a ticket buffer must not run at the same time. The
+// finish costs the last block three dependent round trips to memory (the
+// fence, the ticket, the partials' read; warp 0 alone runs it), so at
+// (64, 16384) the one launch takes 6.6 us on an H100 80GB HBM3 at 700 W,
+// against 5.1 for the first design's first launch alone and 7.2 for its
+// two through the wrapper; at a leaf of (4, 151936 x 896) 1.36 ms, 95% of
+// the bytes bound. Finishing through a thread block
+// cluster's shared memory instead (a row's tiles one cluster) saved a
+// fraction of that in a trial, but takes only rows of at most 8 tiles.
+//
 // The effective message eff = w*z + ef is rounded once (__fmaf_rn), as XLA
 // rounds the fused multiply-add it emits, and every later step uses the
 // _rn intrinsics so that nvcc's contraction cannot change a rounding: a
@@ -103,9 +130,32 @@
 // where recv = 0). At n = 16384 that is 512 blocks of 8 warps. The slice
 // takes 4 M (32 + 3) + 32 M bytes of shared memory (the column, w, incl,
 // recv, and a byte of keep flag a row and column) and 132 bytes of
-// scalars: M <= 285 fits the default 48 KB, M <= 1350 the opt-in 227 KB,
-// larger fleets are refused by the wrapper. The ragged column edge is
-// masked by the column bound.
+// scalars: M <= 285 fits the default 48 KB, M <= 1350 the opt-in 227 KB.
+// The ragged column edge is masked by the column bound.
+//
+// Larger fleets take a second, streamed path (trimmed_stream_kernel), which
+// the wrapper picks when the staged slice would not fit: the same block of
+// 32 columns x 8 row groups walks the rows in chunks of kTrimChunk, in row
+// order. For each chunk a thread holds its kTrimChunkPass rows' values and
+// rank counters in registers while all M rows of the column stream through
+// shared memory in tiles of kTrimTile rows, double-buffered by cp.async
+// (4-byte copies, so any row length or alignment is taken). Ranks add incl_k
+// over k in order with the same tie-break, the chunk's keep flags go to
+// shared memory, and one thread per column adds the chunk's kept w z and w
+// in row order to a numerator and denominator carried across chunks: the
+// staged kernel's survivor set and sum order, so both paths agree bit for
+// bit where both run. Shared memory is fixed (37 KB), so the rows are not
+// bounded by it. Like the Pallas kernel the path is O(M^2 n): each ordered
+// pair one compare and a predicated add, twice the least work of 2.05 ms at
+// M = 2048, n = 16384 and 49 ms at M = 10000 (one compare and one add an
+// unordered pair at the f32 non-FMA issue rate), and it re-reads the column
+// once a chunk (M / 128 times, 51 GB at M = 10000 -- 15 ms of HBM, under the
+// compares). A select-based path (a per-column radix select of the b-th and
+// (n_incl - 1 - b)-th (value, row) keys) would be O(M n), but it keeps the
+// survivor set only for 0/1 incl, needs the column in shared memory or
+// several passes over it, and trades the staged kernel's proven expressions
+// for new ones; fleets this large sync rarely, so the streamed rank was
+// chosen for its exact agreement with the staged path.
 //
 // outer_apply_launch replaces the Pallas kernel outer_apply (def :488,
 // pallas_call :518, body _outer_kernel :240): the server's outer step on
@@ -113,15 +163,33 @@
 // (m' = b m + Delta, z' = z + lr m'), Nesterov (z' = z + lr (Delta + b m'))
 // or Adam (bias-corrected with t + 1), and one partial sum of Delta^2 per
 // block. Bound on an H100: bytes (momentum and Nesterov read 3 and write 2
-// rows, Adam reads 4 and writes 3: 0.10 and 0.14 us at n = 16384), so at
-// the game's size the launch itself sets the time. Design: elementwise
-// over column tiles; every a b + c of the update is one __fmaf_rn and the
-// other steps use _rn intrinsics, the roundings XLA gives the JAX package
-// on the CPU; Adam's bias factors 1 - b^(t+1) come precomputed from the
-// wrapper (one f32 pow each, shared with the plain version), and at
-// lr = 1 the step is m' / ((1 - b1^(t+1)) (sqrt(v_hat) + eps)), XLA's
-// rewrite of (a / b) / c. The Delta^2 partial is a fixed-order block
-// reduction; the wrapper sums the partials.
+// rows, Adam reads 4 and writes 3: 0.10 and 0.14 us at n = 16384, 0.81 and
+// 1.14 ms at the language model's embedding leaf, n = 151936 x 896), so at
+// the game's size the launch itself sets the time. Every a b + c of the
+// update is one __fmaf_rn and the other steps use _rn intrinsics, the
+// roundings XLA gives the JAX package on the CPU; Adam's bias factors
+// 1 - b^(t+1) come precomputed from the wrapper (one f32 pow each, shared
+// with the plain version), and at lr = 1 the step is
+// m' / ((1 - b1^(t+1)) (sqrt(v_hat) + eps)), XLA's rewrite of (a / b) / c.
+//
+// What limited the first design (1024-column tiles of scalar loads, one
+// element a thread per step, one Delta^2 partial per block that the
+// wrapper summed with torch.sum): at n = 16384, 16 blocks and two launches;
+// at the embedding leaf 133k blocks of scalar loads. Design: a grid sized
+// to the SMs (at most 4 blocks of 256 threads an SM) strides over passes of
+// kOuterStep columns; a thread owns kOuterCols columns of a pass (float4
+// when n % 4 == 0 and the pointers are 16-byte aligned) and issues all
+// their loads before its arithmetic. Each thread sums its Delta^2 in pass
+// order, the block in fixed shuffle trees (each warp, then the warps), and
+// the last block to arrive (a ticket, reset to 0 after use) sums the
+// blocks' partials in a fixed order into delta_sq (lane l of its first warp
+// partials l, l + 32, ... in order, then a shuffle tree): one launch, reruns
+// bit-identical. Finishing in the launch costs its last block three
+// dependent round trips to memory (the fence, the ticket, the partials).
+//
+// empty_launch launches a kernel that does nothing, on a grid of the given
+// blocks of 256 threads: the launch floor that chip_smoke.py times beside
+// B6 and B11, whose small shapes take little more than a launch.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -376,37 +444,99 @@ __device__ __forceinline__ float codec_uniform(uint32_t k0, uint32_t k1,
   return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.f);
 }
 
-// B6 stats: part[m, tile] = max over the tile of |w*z + ef|.
+// A warp's maximum of v (v >= 0) and sum of v (a fixed shuffle tree), in
+// lane 0.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// Called by warp 0 alone: lane 0 writes the block's partial v to *slot and
+// counts the block in on the ticket. True in every lane when the block
+// arrived last of the `blocks` that share the ticket; all their partials
+// are then visible to it.
+__device__ __forceinline__ bool arrived_last(float* slot, float v,
+                                             unsigned* ticket,
+                                             unsigned blocks) {
+  unsigned prev = 0u;
+  if (threadIdx.x == 0) {
+    *slot = v;
+    __threadfence();
+    prev = atomicAdd(ticket, 1u);
+  }
+  return __shfl_sync(0xffffffffu, prev, 0) == blocks - 1;
+}
+
+// B6 stats: out[m] = max over row m of |w*z + ef|, in one launch.
+constexpr int kStatsCols = 16;                          // a thread's, a pass
+constexpr int kStatsStep = kUpThreads * kStatsCols;     // a block's, a pass
+
 template <int V>
 __global__ void __launch_bounds__(kUpThreads)
 stats_kernel(const float* __restrict__ z, const float* __restrict__ w,
-             const float* __restrict__ ef, float* __restrict__ part, int n,
+             const float* __restrict__ ef, float* __restrict__ part,
+             unsigned* __restrict__ tickets, float* __restrict__ out, int n,
              int tile) {
+  constexpr int U = kStatsCols / V;
   const RowTile t(n, tile);
   const bool has_w = w != nullptr;
   const bool has_ef = ef != nullptr;
   const float wv = has_w ? w[t.m] : 1.f;
   float acc = 0.f;
-  for (int j = t.start + V * threadIdx.x; j < t.end; j += V * kUpThreads) {
-    float zv[V], ev[V] = {};
-    load<V>(z + t.base + j, zv);
-    if (has_ef) load<V>(ef + t.base + j, ev);
+  for (int j0 = t.start; j0 < t.end; j0 += kStatsStep) {
+    float zv[U][V], ev[U][V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      acc = fmaxf(acc, fabsf(effective(zv[i], ev[i], wv, has_w, has_ef)));
+    for (int u = 0; u < U; ++u) {     // every load of the pass first
+      const int j = j0 + (u * kUpThreads + threadIdx.x) * V;
+#pragma unroll
+      for (int v = 0; v < V; ++v) zv[u][v] = ev[u][v] = 0.f;
+      if (j < t.end) {
+        load<V>(z + t.base + j, zv[u]);
+        if (has_ef) load<V>(ef + t.base + j, ev[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc = fmaxf(acc, fabsf(effective(zv[u][v], ev[u][v], wv, has_w,
+                                         has_ef)));
+      }
     }
   }
   __shared__ float smem[kUpThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = fmaxf(acc, __shfl_down_sync(0xffffffffu, acc, off));
-  }
+  acc = warp_max(acc);
   if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = acc;
   __syncthreads();
+  if (threadIdx.x >= 32) return;      // warp 0 finishes the block
+  const float mx =
+      warp_max(threadIdx.x < kUpThreads / 32 ? smem[threadIdx.x] : 0.f);
+  const unsigned tiles = gridDim.x;
+  if (tiles == 1) {
+    if (threadIdx.x == 0) out[t.m] = mx;
+    return;
+  }
+  float* row = part + static_cast<int64_t>(t.m) * tiles;
+  if (!arrived_last(row + blockIdx.x, mx, tickets + t.m, tiles)) return;
+  float r = 0.f;
+  for (unsigned i = threadIdx.x; i < tiles; i += 32) {
+    r = fmaxf(r, __ldcg(row + i));
+  }
+  r = warp_max(r);
   if (threadIdx.x == 0) {
-    float mx = 0.f;
-    for (int i = 0; i < kUpThreads / 32; ++i) mx = fmaxf(mx, smem[i]);
-    part[static_cast<int64_t>(t.m) * gridDim.x + blockIdx.x] = mx;
+    out[t.m] = r;
+    tickets[t.m] = 0u;
   }
 }
 
@@ -609,60 +739,270 @@ trimmed_kernel(const float* __restrict__ z, const float* __restrict__ w,
   }
 }
 
+// B10's streamed path for fleets whose (M, 32) slice does not fit in shared
+// memory: chunks of kTrimChunk rows ranked against the column streamed in
+// tiles of kTrimTile rows.
+constexpr int kTrimChunkPass = 16;                        // a thread's rows
+constexpr int kTrimChunk = kTrimGroups * kTrimChunkPass;  // a chunk's rows
+constexpr int kTrimTile = 64;
+
+// 4-byte asynchronous copy into shared memory; zero-filled when !valid (src
+// is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+enum RankMode { kRankBefore, kRankAfter, kRankPerPair };
+
+// Adds incl_k to rank[u] for the kn rows k of a streamed tile (tz: this
+// lane's column, stride kTrimCols) that rank below row i_u = i_0 + 8u; kk0
+// is k - i_0 at the tile's first row. Before: every k < i_u (z_k <= z_i);
+// after: every k > i_u (z_k < z_i); per pair: either, by the row index.
+template <int kMode>
+__device__ __forceinline__ void rank_tile(const float* tz, const float* ti,
+                                          int kn, int kk0,
+                                          const float (&zi)[kTrimChunkPass],
+                                          float (&rank)[kTrimChunkPass]) {
+#pragma unroll 4
+  for (int k = 0; k < kn; ++k) {
+    const float zk = tz[k * kTrimCols];
+    const float ik = ti[k];
+#pragma unroll
+    for (int u = 0; u < kTrimChunkPass; ++u) {
+      bool below;
+      if constexpr (kMode == kRankBefore) {
+        below = zk <= zi[u];
+      } else if constexpr (kMode == kRankAfter) {
+        below = zk < zi[u];
+      } else {
+        below = kk0 + k < kTrimGroups * u ? zk <= zi[u] : zk < zi[u];
+      }
+      if (below) rank[u] = __fadd_rn(rank[u], ik);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTrimThreads)
+trimmed_stream_kernel(const float* __restrict__ z, const float* __restrict__ w,
+                      const float* __restrict__ incl,
+                      const float* __restrict__ recv,
+                      const float* __restrict__ old, float* __restrict__ out,
+                      int rows, int n, float trim) {
+  __shared__ float tile_z[2][kTrimTile * kTrimCols];
+  __shared__ float tile_incl[2][kTrimTile];
+  __shared__ float chunk_z[kTrimChunk * kTrimCols];
+  __shared__ uint8_t keep_sh[kTrimChunk * kTrimCols];
+  __shared__ float mean_sh[kTrimCols];
+  __shared__ float n_incl_sh;
+
+  const int lane = threadIdx.x % kTrimCols;
+  const int group = threadIdx.x / kTrimCols;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTrimCols + lane;
+  const bool in = col < n;
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int i = 0; i < rows; ++i) s = __fadd_rn(s, incl[i]);
+    n_incl_sh = s;
+  }
+  __syncthreads();
+  const float n_incl = n_incl_sh;
+  const float b = fminf(trim, floorf(__fmul_rn(__fsub_rn(n_incl, 1.f), 0.5f)));
+  const float hi = __fsub_rn(__fsub_rn(n_incl, 1.f), b);
+
+  // Tile kt of the column: rows kt * kTrimTile + group + 8 r of this lane's
+  // column, and (threads 0..kTrimTile-1) the tile's incl.
+  const int tiles = (rows + kTrimTile - 1) / kTrimTile;
+  auto fetch = [&](int kt) {
+    const int k0 = kt * kTrimTile;
+    float* dst = tile_z[kt & 1];
+    for (int r = group; r < kTrimTile; r += kTrimGroups) {
+      const bool ok = in && k0 + r < rows;
+      cp_async4(dst + r * kTrimCols + lane,
+                ok ? z + static_cast<int64_t>(k0 + r) * n + col : z, ok);
+    }
+    if (threadIdx.x < kTrimTile) {
+      const bool ok = k0 + threadIdx.x < rows;
+      cp_async4(tile_incl[kt & 1] + threadIdx.x,
+                ok ? incl + k0 + threadIdx.x : incl, ok);
+    }
+    cp_async_commit();
+  };
+
+  float num = 0.f, den = 0.f;         // column sums, carried across chunks
+  for (int c0 = 0; c0 < rows; c0 += kTrimChunk) {
+    // this thread's rows i_u = c0 + group + 8u, increasing in u
+    float zi[kTrimChunkPass], rank[kTrimChunkPass];
+#pragma unroll
+    for (int u = 0; u < kTrimChunkPass; ++u) {
+      const int r = group + kTrimGroups * u;
+      const int i = c0 + r;
+      zi[u] = (in && i < rows) ? z[static_cast<int64_t>(i) * n + col] : 0.f;
+      chunk_z[r * kTrimCols + lane] = zi[u];
+      rank[u] = 0.f;
+    }
+    fetch(0);
+    for (int kt = 0; kt < tiles; ++kt) {
+      if (kt + 1 < tiles) {
+        fetch(kt + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* tz = tile_z[kt & 1] + lane;
+      const float* ti = tile_incl[kt & 1];
+      const int k0 = kt * kTrimTile;
+      const int kn = min(kTrimTile, rows - k0);
+      // z_k ranks below z_i when z_k < z_i, or z_k = z_i and k < i: a tile
+      // wholly before the chunk's rows compares with <=, one wholly after
+      // with <, and one that overlaps them settles it per pair.
+      const int kk0 = k0 - c0 - group;  // k - i_0 at the tile's first row
+      if (k0 + kTrimTile <= c0) {
+        rank_tile<kRankBefore>(tz, ti, kn, kk0, zi, rank);
+      } else if (k0 >= c0 + kTrimChunk) {
+        rank_tile<kRankAfter>(tz, ti, kn, kk0, zi, rank);
+      } else {
+        rank_tile<kRankPerPair>(tz, ti, kn, kk0, zi, rank);
+      }
+      __syncthreads();                // the buffer is refilled next
+    }
+#pragma unroll
+    for (int u = 0; u < kTrimChunkPass; ++u) {
+      const int r = group + kTrimGroups * u;
+      const int i = c0 + r;
+      if (i < rows) {
+        keep_sh[r * kTrimCols + lane] =
+            incl[i] > 0.f && rank[u] >= b && rank[u] <= hi;
+      }
+    }
+    __syncthreads();
+    if (group == 0) {
+      const int rn = min(kTrimChunk, rows - c0);
+      for (int r = 0; r < rn; ++r) {
+        if (keep_sh[r * kTrimCols + lane]) {
+          const float wi = w[c0 + r];
+          num = __fadd_rn(num, __fmul_rn(wi, chunk_z[r * kTrimCols + lane]));
+          den = __fadd_rn(den, wi);
+        }
+      }
+    }
+    __syncthreads();                  // chunk_z and keep_sh are refilled next
+  }
+  if (group == 0) mean_sh[lane] = __fdiv_rn(num, fmaxf(den, 1e-30f));
+  __syncthreads();
+  if (!in) return;
+  const float mean = mean_sh[lane];
+  for (int i = group; i < rows; i += kTrimGroups) {
+    const int64_t off = static_cast<int64_t>(i) * n + col;
+    out[off] = (recv == nullptr || recv[i] > 0.f) ? mean : old[off];
+  }
+}
+
 // ---------------------------------------------------------------------------
-// B11 outer step: elementwise over column tiles of the (1, n) server leaf.
+// B11 outer step on the (1, n) server leaf: a grid sized to the SMs strides
+// over passes of kOuterStep columns, V columns a load (V = 4: float4).
 // ---------------------------------------------------------------------------
 constexpr int kOuterThreads = 256;
+constexpr int kOuterCols = 8;                             // a thread's, a pass
+constexpr int kOuterStep = kOuterThreads * kOuterCols;    // a block's, a pass
 enum OuterKind { kMomentum = 0, kNesterov = 1, kAdam = 2 };
 
+template <int V>
 __global__ void __launch_bounds__(kOuterThreads)
 outer_kernel(const float* __restrict__ g, const float* __restrict__ z,
              const float* __restrict__ m0, const float* __restrict__ m1,
              const float* __restrict__ bias, float* __restrict__ z_out,
              float* __restrict__ m0_out, float* __restrict__ m1_out,
-             float* __restrict__ part, int n, int tile, int kind, float lr,
+             float* __restrict__ part, unsigned* __restrict__ ticket,
+             float* __restrict__ delta_sq, int n, int kind, float lr,
              float beta1, float beta2, float eps, float c1, float c2) {
-  const int start = blockIdx.x * tile;
-  const int end = min(start + tile, n);
-  const float bc1 = kind == kAdam ? bias[0] : 1.f;
-  const float bc2 = kind == kAdam ? bias[1] : 1.f;
+  constexpr int U = kOuterCols / V;
+  const bool adam = kind == kAdam;
+  const float bc1 = adam ? bias[0] : 1.f;
+  const float bc2 = adam ? bias[1] : 1.f;
   float acc = 0.f;
-  for (int j = start + threadIdx.x; j < end; j += kOuterThreads) {
-    const float zz = z[j];
-    const float d = __fsub_rn(g[j], zz);
-    float zn;
-    if (kind == kAdam) {
-      const float mn = __fmaf_rn(beta1, m0[j], __fmul_rn(c1, d));
-      const float vn = __fmaf_rn(beta2, m1[j], __fmul_rn(__fmul_rn(c2, d), d));
-      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), eps);
-      const float step = lr == 1.f
-          ? __fdiv_rn(mn, __fmul_rn(bc1, den))
-          : __fdiv_rn(__fmul_rn(lr, __fdiv_rn(mn, bc1)), den);
-      zn = __fadd_rn(zz, step);
-      m0_out[j] = mn;
-      m1_out[j] = vn;
-    } else {
-      const float mn = __fmaf_rn(beta1, m0[j], d);
-      const float st = kind == kNesterov ? __fmaf_rn(beta1, mn, d) : mn;
-      zn = __fmaf_rn(lr, st, zz);
-      m0_out[j] = mn;
+  for (int64_t j0 = static_cast<int64_t>(blockIdx.x) * kOuterStep; j0 < n;
+       j0 += static_cast<int64_t>(gridDim.x) * kOuterStep) {
+    float gv[U][V], zv[U][V], av[U][V], bv[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {     // every load of the pass first
+      const int64_t j = j0 + (u * kOuterThreads + threadIdx.x) * V;
+      if (j < n) {
+        load<V>(g + j, gv[u]);
+        load<V>(z + j, zv[u]);
+        load<V>(m0 + j, av[u]);
+        if (adam) load<V>(m1 + j, bv[u]);
+      }
     }
-    z_out[j] = zn;
-    acc = __fadd_rn(acc, __fmul_rn(d, d));
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = j0 + (u * kOuterThreads + threadIdx.x) * V;
+      if (j >= n) continue;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {   // in place: gv <- z', av <- m', bv <- v'
+        const float zz = zv[u][v];
+        const float d = __fsub_rn(gv[u][v], zz);
+        if (adam) {
+          const float mn = __fmaf_rn(beta1, av[u][v], __fmul_rn(c1, d));
+          const float vn = __fmaf_rn(beta2, bv[u][v],
+                                     __fmul_rn(__fmul_rn(c2, d), d));
+          const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), eps);
+          const float step = lr == 1.f
+              ? __fdiv_rn(mn, __fmul_rn(bc1, den))
+              : __fdiv_rn(__fmul_rn(lr, __fdiv_rn(mn, bc1)), den);
+          gv[u][v] = __fadd_rn(zz, step);
+          av[u][v] = mn;
+          bv[u][v] = vn;
+        } else {
+          const float mn = __fmaf_rn(beta1, av[u][v], d);
+          const float st = kind == kNesterov ? __fmaf_rn(beta1, mn, d) : mn;
+          gv[u][v] = __fmaf_rn(lr, st, zz);
+          av[u][v] = mn;
+        }
+        acc = __fadd_rn(acc, __fmul_rn(d, d));
+      }
+      store<V>(z_out + j, gv[u]);
+      store<V>(m0_out + j, av[u]);
+      if (adam) store<V>(m1_out + j, bv[u]);
+    }
   }
   __shared__ float smem[kOuterThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-  }
+  acc = warp_sum(acc);
   if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = acc;
   __syncthreads();
+  if (threadIdx.x >= 32) return;      // warp 0 finishes the block
+  const float s =
+      warp_sum(threadIdx.x < kOuterThreads / 32 ? smem[threadIdx.x] : 0.f);
+  const unsigned blocks = gridDim.x;
+  if (blocks == 1) {
+    if (threadIdx.x == 0) *delta_sq = s;
+    return;
+  }
+  if (!arrived_last(part + blockIdx.x, s, ticket, blocks)) return;
+  float r = 0.f;                      // lane l: partials l, l + 32, ...
+  for (unsigned i = threadIdx.x; i < blocks; i += 32) {
+    r = __fadd_rn(r, __ldcg(part + i));
+  }
+  r = warp_sum(r);
   if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int i = 0; i < kOuterThreads / 32; ++i) s = __fadd_rn(s, smem[i]);
-    part[blockIdx.x] = s;
+    *delta_sq = r;
+    *ticket = 0u;
   }
 }
+
+__global__ void empty_kernel() {}
 
 dim3 uplink_grid(int rows, int n, int tile) {
   return dim3(static_cast<unsigned>((n + tile - 1) / tile),
@@ -688,16 +1028,19 @@ int merge_stacked_launch(const float* z, const float* w, const float* recv,
 // vec = 1 takes the float4 path: n and tile multiples of 4, pointers
 // 16-byte aligned (the uint8 mask 4-byte aligned).
 
-// part is (rows, ceil(n / tile)).
+// part is (rows, ceil(n / tile)) scratch, tickets (rows,) arrival counters
+// at 0 (left at 0), out (rows,); tile best a multiple of kStatsStep.
 int uplink_stats_launch(const float* z, const float* w, const float* ef,
-                        float* part, int rows, int n, int tile, int vec,
-                        void* stream) {
+                        float* part, unsigned* tickets, float* out, int rows,
+                        int n, int tile, int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = uplink_grid(rows, n, tile);
   if (vec) {
-    stats_kernel<4><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, n, tile);
+    stats_kernel<4><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, tickets, out,
+                                                n, tile);
   } else {
-    stats_kernel<1><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, n, tile);
+    stats_kernel<1><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, tickets, out,
+                                                n, tile);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -750,13 +1093,23 @@ int mask_uplink_launch(const float* eff, const uint8_t* mask, const float* ef,
 }
 
 // B10. w and incl are (rows,); recv and old may be null (every row
-// receives). The shared slice takes rows (4 (kTrimCols + 3) + kTrimCols)
-// + 4 (kTrimCols + 1) bytes; above 48 KB the launcher opts in to the
-// larger carve-out (227 KB at most).
+// receives). path 0 stages the block's slice in shared memory: rows
+// (4 (kTrimCols + 3) + kTrimCols) + 4 (kTrimCols + 1) bytes, above 48 KB
+// by the opt-in carve-out (227 KB at most, so rows <= 1350; more is refused
+// here). path 1 streams the column through 37 KB (any rows). The wrapper
+// picks path 0 where it fits (kernel.py::trimmed_path); both give the same
+// bits.
 int trimmed_merge_launch(const float* z, const float* w, const float* incl,
                          const float* recv, const float* old, float* out,
-                         int rows, int n, float trim, void* stream) {
+                         int rows, int n, float trim, int path, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + kTrimCols - 1) / kTrimCols);
+  if (path == 1) {
+    trimmed_stream_kernel<<<blocks, kTrimThreads, 0, s>>>(
+        z, w, incl, recv, old, out, rows, n, trim);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       static_cast<size_t>(rows) * (sizeof(float) * (kTrimCols + 3) + kTrimCols) +
       sizeof(float) * (kTrimCols + 1);
@@ -766,7 +1119,6 @@ int trimmed_merge_launch(const float* z, const float* w, const float* incl,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned blocks = static_cast<unsigned>((n + kTrimCols - 1) / kTrimCols);
   trimmed_kernel<<<blocks, kTrimThreads, smem, s>>>(z, w, incl, recv, old, out,
                                                     rows, n, trim);
   return static_cast<int>(cudaGetLastError());
@@ -775,17 +1127,31 @@ int trimmed_merge_launch(const float* z, const float* w, const float* incl,
 // B11. kind: 0 momentum, 1 Nesterov, 2 Adam. m1, m1_out and bias (the two
 // bias factors, device memory) are read or written for Adam only; beta1 is
 // the momentum coefficient of the other two. c1 = f32(1 - beta1), c2 =
-// f32(1 - beta2). part is (ceil(n / tile),).
+// f32(1 - beta2). part is (blocks,) scratch, ticket one arrival counter at
+// 0 (left at 0), delta_sq one float. vec = 1 takes the float4 path: n a
+// multiple of 4, pointers 16-byte aligned.
 int outer_apply_launch(const float* g, const float* z, const float* m0,
                        const float* m1, const float* bias, float* z_out,
-                       float* m0_out, float* m1_out, float* part, int n,
-                       int tile, int kind, float lr, float beta1, float beta2,
+                       float* m0_out, float* m1_out, float* part,
+                       unsigned* ticket, float* delta_sq, int n, int blocks,
+                       int vec, int kind, float lr, float beta1, float beta2,
                        float eps, float c1, float c2, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>((n + tile - 1) / tile);
-  outer_kernel<<<blocks, kOuterThreads, 0, s>>>(
-      g, z, m0, m1, bias, z_out, m0_out, m1_out, part, n, tile, kind, lr,
-      beta1, beta2, eps, c1, c2);
+  if (vec) {
+    outer_kernel<4><<<blocks, kOuterThreads, 0, s>>>(
+        g, z, m0, m1, bias, z_out, m0_out, m1_out, part, ticket, delta_sq, n,
+        kind, lr, beta1, beta2, eps, c1, c2);
+  } else {
+    outer_kernel<1><<<blocks, kOuterThreads, 0, s>>>(
+        g, z, m0, m1, bias, z_out, m0_out, m1_out, part, ticket, delta_sq, n,
+        kind, lr, beta1, beta2, eps, c1, c2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A kernel that does nothing, on blocks x 256 threads: the launch floor.
+int empty_launch(int blocks, void* stream) {
+  empty_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

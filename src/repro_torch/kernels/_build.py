@@ -20,6 +20,7 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -157,6 +158,12 @@ def on_cpu(t: torch.Tensor) -> bool:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a Python int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (grid sizing)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda_f32(name: str, *tensors) -> None:

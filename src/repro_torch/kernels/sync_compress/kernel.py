@@ -16,7 +16,9 @@ codec uplink passes.
 
 Each takes one worker-stacked flat leaf ``(M, n)`` with per-worker
 ``(M,)`` scalars. A CPU tensor goes to the plain version in :mod:`.ref`; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises. Each is one launch: the scale
+pass and the outer step finish their reductions in the kernel's last block
+(:func:`tickets`).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ _SRC = "sync_compress.cu"
 MERGE = _build.Kernel("merge_stacked", _SRC, "merge_stacked_launch",
                       [P, P, P, P, P, I, I, I, I, P])
 STATS = _build.Kernel("uplink_stats", _SRC, "uplink_stats_launch",
-                      [P, P, P, P, I, I, I, I, P])
+                      [P, P, P, P, P, P, I, I, I, I, P])
 QUANTIZE = _build.Kernel("quantize_uplink", _SRC, "quantize_uplink_launch",
                          [P, P, P, P, P, P, P, P, I, I, I, I, F, P])
 EFF = _build.Kernel("eff_uplink", _SRC, "eff_uplink_launch",
@@ -48,27 +50,88 @@ EFF = _build.Kernel("eff_uplink", _SRC, "eff_uplink_launch",
 MASK = _build.Kernel("mask_uplink", _SRC, "mask_uplink_launch",
                      [P, P, P, P, P, P, I, I, I, I, P])
 TRIMMED = _build.Kernel("trimmed_merge_stacked", _SRC, "trimmed_merge_launch",
-                        [P, P, P, P, P, P, I, I, F, P])
+                        [P, P, P, P, P, P, I, I, F, I, P])
 OUTER = _build.Kernel("outer_apply", _SRC, "outer_apply_launch",
-                      [P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F,
-                       P])
+                      [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F,
+                       F, F, F, P])
 
-#: the merge kernel keeps the M weights in shared memory (48 KB at most,
-#: beside the row slices' 4 KB of partial sums)
-MAX_ROWS = 12 * 1024
-#: columns of one worker's row per block of the uplink kernels
+#: shared memory a block can take on an H100 (the opt-in carve-out)
+SHARED_BYTES = 232448
+#: the merge kernel keeps the M weights in shared memory, beside the row
+#: slices' 4 KB of partial sums
+MAX_ROWS = (SHARED_BYTES - 4 * 256 * 4) // 4
+#: columns of one worker's row per block of the quantize, eff and mask passes
 TILE = 2048
-#: the robust merge stages an (M, 32) slice, three (M,) vectors, a byte of
-#: keep flag per slice entry and 33 scalars in shared memory: at most
-#: 227 KB, so M <= 1350
-TRIMMED_MAX_ROWS = (232448 - 4 * (32 + 1)) // (4 * (32 + 3) + 32)
-#: columns of the server leaf per block of the outer step
-OUTER_TILE = 1024
+#: columns a block of the scale pass (B6) covers in one pass (256 threads x
+#: 16), and the blocks an SM its grid is sized to
+STATS_STEP = 256 * 16
+STATS_BLOCKS_PER_SM = 4
+#: the robust merge's staged path keeps an (M, 32) slice, three (M,)
+#: vectors, a byte of keep flag per slice entry and 33 scalars in shared
+#: memory, so it takes M <= 1350; larger fleets take the streamed path
+TRIMMED_STAGED_ROWS = (SHARED_BYTES - 4 * (32 + 1)) // (4 * (32 + 3) + 32)
+TRIMMED_STAGED, TRIMMED_STREAMED = 0, 1
+#: columns a block of the outer step covers in one pass (256 threads x 8),
+#: and the blocks an SM its grid is sized to
+OUTER_STEP = 256 * 8
+OUTER_BLOCKS_PER_SM = 4
 _OUTER_KINDS = {"momentum": 0, "nesterov": 1, "adam": 2}
+#: the scale pass keeps one ticket a row: as many as a leaf may have rows
+STATS_TICKETS = 65535
+
+_TICKETS: dict = {}
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def tickets(name: str, count: int, device) -> torch.Tensor:
+    """The ``count`` int32 arrival counters of kernel ``name`` on
+    ``device``, made once at 0. A kernel whose last block finishes a
+    reduction counts its blocks in on them, and that block resets them to
+    0, so the next launch, or a CUDA graph's replay, finds them at 0.
+    Launches that share them run in order, on one stream."""
+    key = (name, torch.device(device))
+    buf = _TICKETS.get(key)
+    if buf is None:
+        if (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f"{name}: call it once before capturing a "
+                               "CUDA graph (its tickets are made at 0 then)")
+        buf = _TICKETS[key] = torch.zeros(count, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+def stats_tile(rows: int, n: int, sms: int) -> int:
+    """Columns per block of the scale pass (B6): whole passes of
+    ``STATS_STEP`` columns, in as many tiles a row as keep the grid within
+    ``STATS_BLOCKS_PER_SM`` blocks an SM (one wave), and at least one.
+
+    >>> stats_tile(64, 16384, 132), stats_tile(4, 151936 * 896, 132)
+    (4096, 1032192)
+    """
+    passes = -(-n // STATS_STEP)
+    tiles = max(1, min(passes, sms * STATS_BLOCKS_PER_SM // rows))
+    return -(-passes // tiles) * STATS_STEP
+
+
+def outer_blocks(n: int, sms: int) -> int:
+    """Blocks of the outer step (B11) on a leaf of ``n`` entries: one a
+    pass of ``OUTER_STEP`` columns, at most ``OUTER_BLOCKS_PER_SM`` an SM.
+
+    >>> outer_blocks(16384, 132), outer_blocks(151936 * 896, 132)
+    (8, 528)
+    """
+    return max(1, min(-(-n // OUTER_STEP), sms * OUTER_BLOCKS_PER_SM))
+
+
+def trimmed_path(rows: int) -> int:
+    """The robust merge's path for a fleet of ``rows``: the staged slice
+    (``TRIMMED_STAGED``) while it fits in shared memory, the streamed
+    column (``TRIMMED_STREAMED``) above; the two give the same bits."""
+    return TRIMMED_STAGED if rows <= TRIMMED_STAGED_ROWS else TRIMMED_STREAMED
 
 
 def merge_stacked(z, w=None, recv=None, old=None, *, normalize=False):
@@ -109,11 +172,14 @@ def uplink_stats(z, w=None, ef=None):
         return uplink_stats_ref(z, ef, w)
     rows, n, vec = _build.layout("uplink_stats", z, ef)
     wf = _build.per_worker_f32("uplink_stats", w, rows, z)
-    part = torch.empty((rows, (n + TILE - 1) // TILE), dtype=torch.float32,
+    tile = stats_tile(rows, n, _build.sm_count(z.device))
+    part = torch.empty(rows * -(-n // tile), dtype=torch.float32,
                        device=z.device)
-    STATS(z.data_ptr(), _ptr(wf), _ptr(ef), part.data_ptr(), rows, n, TILE,
-          vec, _build.stream_of(z))
-    return torch.amax(part, dim=1)
+    out = torch.empty(rows, dtype=torch.float32, device=z.device)
+    STATS(z.data_ptr(), _ptr(wf), _ptr(ef), part.data_ptr(),
+          tickets("uplink_stats", STATS_TICKETS, z.device).data_ptr(),
+          out.data_ptr(), rows, n, tile, vec, _build.stream_of(z))
+    return out
 
 
 def quantize_uplink(z, keys, scale, w=None, ef=None, alive=None, *,
@@ -190,14 +256,14 @@ def trimmed_merge_stacked(z, w, incl, recv=None, old=None, *, trim: int):
         old = None
     elif old is None:
         old = z
-    rows, n, _ = _build.layout("trimmed_merge_stacked", z, old,
-                               max_rows=TRIMMED_MAX_ROWS)
+    rows, n, _ = _build.layout("trimmed_merge_stacked", z, old)
     wf = _build.per_worker_f32("trimmed_merge_stacked", w, rows, z)
     inf = _build.per_worker_f32("trimmed_merge_stacked", incl, rows, z)
     rf = _build.per_worker_f32("trimmed_merge_stacked", recv, rows, z)
     out = torch.empty_like(z)
     TRIMMED(z.data_ptr(), wf.data_ptr(), inf.data_ptr(), _ptr(rf), _ptr(old),
-            out.data_ptr(), rows, n, float(trim), _build.stream_of(z))
+            out.data_ptr(), rows, n, float(trim), trimmed_path(rows),
+            _build.stream_of(z))
     return out
 
 
@@ -238,10 +304,14 @@ def outer_apply(merged, z, mom, t, *, spec):
     bias = adam_bias(spec[2], spec[3], t) if slots == 2 else None
     z_new = torch.empty_like(z)
     mom_new = tuple(torch.empty_like(v) for v in mom)
-    part = torch.empty((n + OUTER_TILE - 1) // OUTER_TILE,
-                       dtype=torch.float32, device=z.device)
+    blocks = outer_blocks(n, _build.sm_count(z.device))
+    part = torch.empty(blocks, dtype=torch.float32, device=z.device)
+    delta_sq = torch.empty((), dtype=torch.float32, device=z.device)
+    vec = int(n % 4 == 0 and _build.aligned16(merged, z, *mom, z_new,
+                                               *mom_new))
     m1, m1_out = (mom[1], mom_new[1]) if slots == 2 else (None, None)
     OUTER(merged.data_ptr(), z.data_ptr(), mom[0].data_ptr(), _ptr(m1),
           _ptr(bias), z_new.data_ptr(), mom_new[0].data_ptr(), _ptr(m1_out),
-          part.data_ptr(), n, OUTER_TILE, *scalars, _build.stream_of(z))
-    return z_new, mom_new, torch.sum(part)
+          part.data_ptr(), tickets("outer_apply", 1, z.device).data_ptr(),
+          delta_sq.data_ptr(), n, blocks, vec, *scalars, _build.stream_of(z))
+    return z_new, mom_new, delta_sq

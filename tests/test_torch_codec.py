@@ -235,6 +235,32 @@ def test_quantize_is_unbiased_on_the_grid():
                                z.gather(1, top[:, None]), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("rows,n", [(64, 16384), (64, 16421), (4, 151936 * 896),
+                                    (1, 100), (3, 5000), (700, 4100)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_stats_grid_is_one_wave_of_whole_passes(rows, n, sms):
+    """The card's scale pass (B6) cuts each row into tiles of whole passes
+    that cover it, at most ``STATS_BLOCKS_PER_SM`` blocks an SM in all
+    (one wave), or one tile a row when the rows alone exceed that."""
+    tile = tk.stats_tile(rows, n, sms)
+    tiles = -(-n // tile)
+    assert tile % tk.STATS_STEP == 0 and tiles * tile >= n
+    assert (tiles - 1) * tile < n                   # no empty tile
+    assert rows * tiles <= max(rows, sms * tk.STATS_BLOCKS_PER_SM)
+    if rows * 2 <= sms * tk.STATS_BLOCKS_PER_SM and n > tk.STATS_STEP:
+        assert tiles > 1                            # the wave is used
+
+
+def test_tickets_are_made_once_at_zero():
+    """The arrival counters a kernel finishes its reduction on: int32 zeros,
+    the same buffer on every call, one per kernel and device."""
+    a = tk.tickets("uplink_stats", tk.STATS_TICKETS, "cpu")
+    assert a.dtype == torch.int32 and a.shape == (tk.STATS_TICKETS,)
+    assert not bool(a.any())
+    assert tk.tickets("uplink_stats", tk.STATS_TICKETS, "cpu") is a
+    assert tk.tickets("outer_apply", 1, "cpu") is not a
+
+
 def test_wrappers_refuse_other_devices():
     z = torch.empty(2, 8, device="meta")
     keys = torch.zeros(2, 2, dtype=torch.int64, device="meta")

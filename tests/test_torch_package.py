@@ -150,6 +150,7 @@ def test_interop_keys_round_trip():
 DOCTEST_MODULES = [
     "repro_torch.random", "repro_torch.interop", "repro_torch.core.worker",
     "repro_torch.kernels.adaseg_update.ops",
+    "repro_torch.kernels.sync_compress.kernel",
     "repro_torch.kernels.sync_compress.ops",
     "repro_torch.kernels.sync_compress.ref", "repro_torch.obs.spans",
     "repro_torch.ps.compress", "repro_torch.ps.engine",

@@ -30,6 +30,7 @@ from repro_torch import interop
 from repro_torch import ps as tps
 from repro_torch import random as jr
 from repro_torch.core import AdaSEGConfig
+from repro_torch.kernels.sync_compress import kernel as tk
 from repro_torch.kernels.sync_compress import ops as tops
 from repro_torch.kernels.sync_compress import ref as tref
 from repro_torch.problems import make_bilinear_game
@@ -233,6 +234,64 @@ def test_trimmed_merge_at_full_trim_is_the_weighted_median():
     z, w, incl, _, _ = _merge_case(7, "plain")
     got = tref.trimmed_merge_ref(_t(z), _t(w), _t(incl), trim=3)
     _close(got.numpy()[0], np.median(z, axis=0), rtol=1e-6, atol=0)
+
+
+# A fleet one row past the card's staged path (1350 rows; the streamed
+# path takes it): ties everywhere and a dead row, against the JAX reference
+# under jit, compiled once for the module.
+BIG_M, BIG_N, BIG_TRIM, BIG_DEAD = 1351, 37, 270, 5
+
+
+@pytest.fixture(scope="module")
+def big_fleet():
+    rng = np.random.default_rng(22)
+    z = np.round(rng.uniform(-1, 1, (BIG_M, BIG_N)) * 4).astype(np.float32) / 4
+    w = rng.uniform(0.2, 2.0, BIG_M).astype(np.float32)
+    incl = np.ones(BIG_M, np.float32)
+    w[BIG_DEAD] = incl[BIG_DEAD] = 0.0
+    recv = incl > 0
+    old = rng.standard_normal((BIG_M, BIG_N)).astype(np.float32)
+    want = jax.jit(lambda z, w, i, r, o: jref.trimmed_merge_ref(
+        z, w, i, trim=BIG_TRIM, recv=r, old=o))(z, w, incl, recv, old)
+    return (z, w, incl, recv, old), np.asarray(want)
+
+
+def test_trimmed_merge_ref_past_the_staged_rows_matches_jax(big_fleet):
+    (z, w, incl, recv, old), want = big_fleet
+    got = tref.trimmed_merge_ref(_t(z), _t(w), _t(incl), trim=BIG_TRIM,
+                                 recv=_t(recv), old=_t(old))
+    _close(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[BIG_DEAD], old[BIG_DEAD])
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_sync_merge_stacked_trimmed_past_the_staged_rows_matches_jax(
+        big_fleet, use_kernel):
+    """The server side as the engine calls it: the dead row's zero weight
+    leaves it out of the order and its ``recv`` keeps ``old``."""
+    (z, w, _, recv, old), want = big_fleet
+    (got,) = tops.sync_merge_stacked((_t(z),), _t(w), _t(recv), (_t(old),),
+                                     normalize=True, agg=("trimmed", BIG_TRIM),
+                                     use_kernel=use_kernel)
+    _close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,path", [
+    (1, tk.TRIMMED_STAGED), (64, tk.TRIMMED_STAGED),
+    (1350, tk.TRIMMED_STAGED), (1351, tk.TRIMMED_STREAMED),
+    (2048, tk.TRIMMED_STREAMED), (10000, tk.TRIMMED_STREAMED),
+    (65535, tk.TRIMMED_STREAMED)])
+def test_trimmed_merge_path_choice(rows, path):
+    """The staged path while its slice fits the opt-in shared memory (1350
+    rows: the (M, 32) column, w, incl, recv, a keep byte a row and column,
+    33 scalars), the streamed path past it, with no row limit below the
+    layout's 65535."""
+    def staged_bytes(m):
+        return m * (4 * (32 + 3) + 32) + 4 * (32 + 1)
+
+    assert tk.TRIMMED_STAGED_ROWS == 1350
+    assert staged_bytes(1350) <= tk.SHARED_BYTES < staged_bytes(1351)
+    assert tk.trimmed_path(rows) == path
 
 
 def _krum_case(case):

@@ -45,6 +45,7 @@ from repro_torch import interop
 from repro_torch import ps as tps
 from repro_torch import random as jr
 from repro_torch.core import AdaSEGConfig, sync_weighted_stacked
+from repro_torch.kernels.sync_compress import kernel as tk
 from repro_torch.kernels.sync_compress import ops as tops
 from repro_torch.kernels.sync_compress import ref as tref
 from repro_torch.problems import make_bilinear_game
@@ -156,6 +157,16 @@ def test_outer_apply_ref_matches_jax_three_chained_steps(name):
             _close(outs["port"][2], outs[key][2], rtol=1e-5)
         sides = {k: (np.asarray(v[0]), tuple(np.asarray(x) for x in v[1]))
                  for k, v in outs.items()}
+
+
+@pytest.mark.parametrize("n,sms,blocks", [
+    (1, 132, 1), (16384, 132, 8), (16421, 132, 9), (151936 * 896, 132, 528),
+    (151936 * 896, 114, 456), (2048 * 528 + 1, 132, 528)])
+def test_outer_grid_is_sized_to_the_sms(n, sms, blocks):
+    """The card's outer step (B11) takes a block a pass of ``OUTER_STEP``
+    columns, at most ``OUTER_BLOCKS_PER_SM`` blocks an SM; its blocks'
+    Σ Δ² partials are then summed by the last block, in block order."""
+    assert tk.outer_blocks(n, sms) == blocks
 
 
 def test_outer_apply_ref_rejects_unknown_spec():

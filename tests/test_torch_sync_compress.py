@@ -6,8 +6,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import sync_weighted_stacked as jax_sync
 from repro.kernels.sync_compress import kernel as jk
 from repro.kernels.sync_compress import ref as jref
+from repro_torch.core import sync_weighted_stacked
 from repro_torch.kernels.sync_compress import kernel as tk
 from repro_torch.kernels.sync_compress import ops as tops
 from repro_torch.kernels.sync_compress import ref as tref
@@ -87,6 +89,41 @@ def test_merge_matches_jax(shape, case):
     for got in (got_ref, got_wrap, got_ops.reshape(m, n)):
         for want in (want_ref, want_ker):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_merge_past_12288_rows_matches_jax(normalize):
+    """A fleet past the 12288 rows the card's merge once took: the wrapper,
+    the tree op and (normalised) ``sync_weighted_stacked`` against the JAX
+    reference. Sums of 12289 terms in another order than XLA's: normalised
+    they stay under 0.02 (1.9e-9 apart); raw they reach |170|, where an ulp
+    is 1.5e-5 (one apart), hence atol 3e-5 there."""
+    m, n = 12289, 5
+    x = _inputs(3, m, n)
+    z, w = torch.from_numpy(x["z"]), torch.from_numpy(x["w"])
+    want = np.asarray(jref.merge_ref(jnp.asarray(x["z"]), jnp.asarray(x["w"]),
+                                     normalize=normalize))
+    got = [tk.merge_stacked(z, w, normalize=normalize),
+           tops.sync_merge_stacked((z,), w, normalize=normalize)[0]]
+    if normalize:
+        got.append(sync_weighted_stacked((z,), w)[0])
+        np.testing.assert_allclose(
+            np.asarray(jax_sync((jnp.asarray(x["z"]),),
+                                jnp.asarray(x["w"]))[0]), want, **TOL)
+    for g in got:
+        assert g.shape == (m, n)
+        np.testing.assert_allclose(g.numpy(), want,
+                                   rtol=1e-6, atol=1e-6 if normalize else 3e-5)
+
+
+def test_merge_weights_fit_the_opt_in_shared_memory():
+    """The card's merge keeps the M weights beside 4 KB of slice partials in
+    the opt-in shared memory: 57088 rows, past the layout's 65535 refused."""
+    def smem(rows):
+        return 4 * 256 * 4 + 4 * rows
+
+    assert tk.MAX_ROWS >= 16384
+    assert smem(tk.MAX_ROWS) <= tk.SHARED_BYTES < smem(tk.MAX_ROWS + 1)
 
 
 def test_merge_broadcasts_one_row_to_every_receiver():
