@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sync-wrappers   # only the sync wrappers' times
+    python3 chip_smoke.py --zoo             # only the zoo phase (no result)
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX. Phases, one JSON line each:
@@ -84,7 +85,21 @@ nothing of JAX. Phases, one JSON line each:
    trees to the bit. Then a fused trimmed+Nesterov
    run is checkpointed at round 2, restored into a new engine and run on,
    and must equal the uninterrupted run bit for bit;
-8. flash_kernels — the flash-attention kernel (B12) against its plain
+8. zoo — the paper's Fig. 4 comparison on the same game (``zoo_setup``:
+   ‖A‖₂ by 30 power iterations; SGDA and SEGDA take lr = 1/(2‖A‖₂), Adam
+   0.02, UMP and ASMP G₀ = n, D = √(2n)): LocalAdaSEG and the five zoo
+   methods as ``MinimaxWorker``s, ``clean`` (iid, uniform K, no faults)
+   and ``hostile`` (Dirichlet-heterogeneous workers at α = 0.4, elastic
+   stragglers, q8 with error feedback, 10% faults), R=5, fused and
+   reference, which must agree within rtol 1e-4 every round; residuals,
+   ms per local step and bytes up per round; the merge kernel must launch
+   on every fused engine, the q8 kernels under ``hostile``, and the
+   adaptive methods' residuals must fall under ``clean``. Then the
+   robust row: heterogeneous robust logistic regression at LIBSVM a9a's
+   widths (32561 × 123, batch 128), LocalAdaSEG and the five methods,
+   K=5, R=2, evaluated by ``kkt_residual``, fused and reference, and a
+   rerun of UMP that must repeat to the bit (``zoo_rerun``);
+9. flash_kernels — the flash-attention kernel (B12) against its plain
    PyTorch version on unit-normal inputs, within 2e-5: the language-model
    path's shape (B=1, H=14, Kh=2, S=T=1024, D=64, causal), a sliding
    window of 256, a soft cap of 50, D=128 and S=1000 (a ragged tile),
@@ -94,7 +109,7 @@ nothing of JAX. Phases, one JSON line each:
    routes to f32-accurate products: the split product on the tensor cores
    (three TF32 terms at the dense TF32 peak, beside the exponentials on the
    MUFU and the bytes), which is always below the f32 FMAs' bound;
-9. ssd_kernels — the SSD scan kernel (B13) against its plain version (the
+10. ssd_kernels — the SSD scan kernel (B13) against its plain version (the
    kernels' chunked arithmetic) within TOL_SSD and against the sequential
    recurrence within TOL_SSD_ORACLE (max abs error over the largest |y|),
    reruns bit-identical: the mamba2 path's shape (B=1, L=1024, H=32, P=64,
@@ -109,7 +124,7 @@ nothing of JAX. Phases, one JSON line each:
    what the earlier launches wrote, and timed alone (``kernel_phase``);
    the whole call is timed beside its plain version, the Pallas kernel's
    chunk loop (no PyTorch call computes the scan);
-10. lm — qwen2-0.5b at full width (24 layers, d_model 896, vocab 151936)
+11. lm — qwen2-0.5b at full width (24 layers, d_model 896, vocab 151936)
    with the flash kernel on, trained through the port's ``make_ps_engine``
    with M=4 workers, per-worker batch 1 × 1024 tokens, K=4, R=2, on the
    fused and the reference backends (identity codec). The eval loss must
@@ -125,7 +140,7 @@ nothing of JAX. Phases, one JSON line each:
    qwen2-shaped model (head_dim 64) runs the same engine on the card and
    on the CPU's plain versions, whose loss traces must agree within 1e-4
    (``lm_small``);
-11. mamba2 — mamba2-370m at full width (48 layers, d_model 1024, 32 heads
+12. mamba2 — mamba2-370m at full width (48 layers, d_model 1024, 32 heads
    of P=64, N=128, chunk 128, vocab 50280) with the SSD scan kernel on
    (``ssm_backend="pallas"``), through the same engine and settings as
    ``lm``: finite eval losses, fused vs reference within 1e-3, B13 launched
@@ -213,6 +228,23 @@ TRIMS = (12, 31)     # TrimmedMean(0.2) and CoordinateMedian() at M = 64
 # row), and one add puts the pair's incl into the higher one's rank.
 TRIM_PAIR_OPS = 2
 TOL_REL_STAT = 1e-5  # the outer step's Σ Δ², summed in another order
+# Zoo phase: the paper's Fig. 4 comparison (benchmarks/bench_fig4_scenarios.py
+# :63-127) on the main game. Fig. 4's fixed rates are for n = 10 (‖A‖₂ ≈ 2);
+# SGDA and SEGDA take 1/(2‖A‖₂) here, Adam keeps 0.02 (its step is scale-
+# free per coordinate), UMP and ASMP take G0 = n and D = √(2n) as AdaSEG.
+ZOO_POWER_ITERS = 30
+ZOO_ADAM_LR = 0.02
+HOSTILE = dict(alpha=0.4, key=7, schedule=dict(k=K, min_frac=0.5, seed=5,
+                                               slow_workers=(3,)),
+               dropout=0.15, dropout_seed=6, faults=dict(p=0.1, seed=3))
+ADAPTIVE = ("adaseg", "ump", "asmp")
+# The robust row: LIBSVM a9a's published widths (32561 examples of 123
+# features), synthetic from the seed; batch 128, λ = 0.1, radius 5. Its
+# depth is cut to K = 5: each heterogeneous draw is a Gumbel argmax over
+# 64 × 128 × 32561 eager threefry uniforms (~0.3 s on an H100), so K = 50
+# would take the row alone to ~10 minutes.
+A9A = dict(n=32561, d=123, batch=128, lam=0.1, radius=5.0)
+ROBUST_GROUPS, ROBUST_ROUNDS, ROBUST_K = 4, 2, 5
 OUTER_SETS = 160     # (1, n) timing sets: 160 × 7 × 64 KiB > the 50 MB L2
 # Flash attention (B12) at the language-model path's shape: qwen2-0.5b's
 # 14 query heads over 2 KV heads, head_dim 64, one sequence of 1024.
@@ -932,31 +964,19 @@ def launches():
 
 
 def run_engine(game, problem, backend, rounds, g0=G0, **ps_kw):
-    """One PSEngine run on the card: (residuals, ms per local step of the
-    fleet, the engine). ``ps_kw`` go to PSConfig (compressor, schedule,
-    faults)."""
+    """One LocalAdaSEG PSEngine run on the card: (residuals, ms per local
+    step of the fleet, the engine). ``ps_kw`` go to PSConfig (compressor,
+    schedule, faults)."""
     import torch
 
-    from repro_torch import random as jr
     from repro_torch.core import AdaSEGConfig
-    from repro_torch.ps import PSConfig, PSEngine
 
     cfg = AdaSEGConfig(g0=g0, diameter=DIAMETER, k=K)
-    eng = PSEngine(problem, PSConfig(adaseg=cfg, num_workers=M,
-                                     rounds=rounds, backend=backend,
-                                     codec_backend=backend, **ps_kw),
-                   rng=jr.PRNGKey(1), eval_fn=game.residual)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    zbar = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    res = [r.residual for r in eng.trace.rounds]
-    check(all(v is not None and math.isfinite(v) for v in res),
-          f"{backend}: non-finite residual {res}")
-    check(all(tuple(v.shape) == (N,) and bool(torch.isfinite(v).all())
-              for v in zbar), f"{backend}: bad output iterate")
-    return res, wall * 1e3 / (rounds * K), eng
+    res, ms, eng = run_zoo_engine(problem, game.residual, dict(adaseg=cfg),
+                                  backend, rounds, ps_kw)
+    check(all(tuple(v.shape) == (N,) for v in eng.z_bar()),
+          f"{backend}: bad output iterate")
+    return res, ms, eng
 
 
 def phase_main(results):
@@ -1622,6 +1642,208 @@ def phase_robust(results, game):
     check(same, "the resumed run differs from the uninterrupted one")
 
 
+def zoo_methods(g0, diameter, lr, k=K):
+    """LocalAdaSEG's config and the five zoo workers, by row name."""
+    from repro_torch.core import AdaSEGConfig
+    from repro_torch.optim import (
+        MinimaxWorker,
+        adam_minimax,
+        asmp,
+        segda,
+        sgda,
+        ump,
+    )
+
+    return {
+        "adaseg": dict(adaseg=AdaSEGConfig(g0=g0, diameter=diameter, k=k)),
+        "sgda": dict(worker=MinimaxWorker(sgda(lr)), local_k=k),
+        "segda": dict(worker=MinimaxWorker(segda(lr)), local_k=k),
+        "adam": dict(worker=MinimaxWorker(adam_minimax(ZOO_ADAM_LR)),
+                     local_k=k),
+        "ump": dict(worker=MinimaxWorker(ump(g0, diameter)), local_k=k),
+        "asmp": dict(worker=MinimaxWorker(asmp(g0, diameter)), local_k=k),
+    }
+
+
+def run_zoo_engine(problem, eval_fn, method_kw, backend, rounds, policies,
+                   k=K):
+    """One PSEngine run on the card of the optimizer in ``method_kw``
+    (``adaseg=`` a config, or ``worker=`` and ``local_k=``) under
+    ``policies`` (PSConfig's compressor, schedule, faults, ...), fused or
+    reference: (residuals, ms per local step of the fleet, the engine)."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.ps import PSConfig, PSEngine
+
+    step_kw = dict(backend=backend) if "adaseg" in method_kw else {}
+    eng = PSEngine(problem, PSConfig(num_workers=M, rounds=rounds,
+                                     codec_backend=backend, **step_kw,
+                                     **method_kw, **policies),
+                   rng=jr.PRNGKey(1), eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zbar = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = [r.residual for r in eng.trace.rounds]
+    check(all(v is not None and math.isfinite(v) for v in res),
+          f"{eng.worker.name} {backend}: non-finite residual {res}")
+    check(all(bool(torch.isfinite(v).all()) for v in zbar),
+          f"{eng.worker.name} {backend}: non-finite output iterate")
+    return res, wall * 1e3 / (rounds * k), eng
+
+
+def hold_fused_vs_reference(label, name, res_f, res_r):
+    """Fused against reference within TOL_TRACE in every round; returns
+    the per-round relative gaps."""
+    gaps = [abs(a - b) / abs(b) for a, b in zip(res_f, res_r)]
+    check(max(gaps) <= TOL_TRACE,
+          f"{label}/{name}: fused vs reference residuals differ by {gaps}")
+    return gaps
+
+
+def phase_zoo(game, smi):
+    """The paper's Fig. 4 comparison through the port's PSEngine on the
+    main game: LocalAdaSEG and the five zoo methods, clean and hostile
+    (Dirichlet-heterogeneous workers, elastic stragglers, q8 with error
+    feedback, faults), fused and reference; then the robust row at a9a's
+    widths, with a rerun that must repeat to the bit."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.core import kkt_residual
+    from repro_torch.problems import make_robust_logistic
+    from repro_torch.ps import (
+        BernoulliFaults,
+        ElasticSchedule,
+        StochasticQuantizeCompressor,
+        StragglerSchedule,
+        heterogeneous_bilinear,
+        heterogeneous_robust,
+    )
+
+    # ‖A‖₂ by power iterations (A is symmetric)
+    v = torch.randn(N, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    for _ in range(ZOO_POWER_ITERS):
+        v = game.a @ v
+        a_norm = float(torch.linalg.vector_norm(v))
+        v = v / a_norm
+    lr = 1.0 / (2.0 * a_norm)
+    emit("zoo_setup", nvidia_smi=smi, a_norm_2=a_norm,
+         power_iterations=ZOO_POWER_ITERS, sgda_segda_lr=lr,
+         adam_lr=ZOO_ADAM_LR, g0=G0, diameter=DIAMETER)
+
+    hostile = dict(
+        schedule=ElasticSchedule(StragglerSchedule(**HOSTILE["schedule"]),
+                                 dropout=HOSTILE["dropout"],
+                                 seed=HOSTILE["dropout_seed"]),
+        compressor=StochasticQuantizeCompressor(bits=8),
+        faults=BernoulliFaults(**HOSTILE["faults"]))
+    scenarios = {
+        "clean": (game.problem, {}),
+        "hostile": (heterogeneous_bilinear(game, M, jr.PRNGKey(HOSTILE["key"]),
+                                           alpha=HOSTILE["alpha"]), hostile),
+    }
+    for label, (problem, policies) in scenarios.items():
+        for name, method_kw in zoo_methods(G0, DIAMETER, lr).items():
+            reset_launches()
+            res_f, ms_f, eng = run_zoo_engine(problem, game.residual,
+                                              method_kw, "fused", R, policies)
+            path_launches = launches()
+            res_r, ms_r, eng_r = run_zoo_engine(problem, game.residual,
+                                                method_kw, "reference", R,
+                                                policies)
+            check(path_launches["merge_stacked"] > 0,
+                  f"zoo {label}/{name}: merge_stacked never launched")
+            if label == "hostile":
+                for k in ("uplink_stats", "quantize_uplink"):
+                    check(path_launches[k] > 0,
+                          f"zoo hostile/{name}: {k} never launched")
+            if name == "adaseg" and label == "clean":
+                for k in ("adaseg_explore", "adaseg_anchor"):
+                    check(path_launches[k] > 0,
+                          f"zoo clean/adaseg: {k} never launched")
+            if label == "clean" and name in ADAPTIVE:
+                check(res_f[-1] < res_f[0] and res_r[-1] < res_r[0],
+                      f"zoo clean/{name}: residual did not fall: {res_f}, "
+                      f"{res_r}")
+            gaps = hold_fused_vs_reference(label, name, res_f, res_r)
+            for backend, res, ms, e in (("fused", res_f, ms_f, eng),
+                                        ("reference", res_r, ms_r, eng_r)):
+                rounds = e.trace.rounds
+                emit("zoo", scenario=label, method=name,
+                     optimizer=e.worker.name, backend=backend,
+                     nvidia_smi=smi, residuals=res, ms_per_local_step=ms,
+                     steps_per_round=[sum(r.local_steps) for r in rounds],
+                     bytes_up_per_round=[r.bytes_up for r in rounds],
+                     **({"launches": path_launches} if backend == "fused"
+                        else {"rel_gap_vs_fused": gaps}))
+            del eng, eng_r
+    torch.cuda.empty_cache()
+
+    # The robust row: heterogeneous robust logistic regression at a9a's
+    # widths, G0 from the first oracle call's norm.
+    t0 = time.perf_counter()
+    rl = make_robust_logistic(jr.PRNGKey(2), n=A9A["n"], d=A9A["d"],
+                              batch=A9A["batch"], lam=A9A["lam"],
+                              radius=A9A["radius"])
+    problem = heterogeneous_robust(rl, M, jr.PRNGKey(8), alpha=0.4,
+                                   num_groups=ROBUST_GROUPS)
+    keys = jr.split(jr.PRNGKey(9), M)
+    z0 = problem.project(problem.init(keys))
+    g = problem.oracle(z0, problem.sample_worker(
+        keys, torch.arange(M, device="cuda")))
+    g0 = float(torch.sqrt(sum(v.square().sum(dim=1) for v in g)).median())
+    ids = torch.arange(M, device="cuda")
+    draw_ms = time_ms(lambda: problem.sample_worker(keys, ids), reps=2,
+                      trials=3)
+    diameter = math.sqrt((2 * A9A["radius"]) ** 2 + 2.0)
+    lr_r = diameter / (g0 * math.sqrt(ROBUST_K * ROBUST_ROUNDS))
+
+    def eval_fn(z):
+        return kkt_residual(problem, z)
+
+    emit("zoo_robust_setup", nvidia_smi=smi, **A9A, workers=M, k=ROBUST_K,
+         rounds=ROBUST_ROUNDS, groups=ROBUST_GROUPS, alpha=0.4, g0=g0,
+         diameter=diameter, sgda_segda_lr=lr_r, draw_ms=draw_ms,
+         seconds=time.perf_counter() - t0)
+    finals = {}
+    robust_methods = zoo_methods(g0, diameter, lr_r, ROBUST_K)
+    for name, method_kw in robust_methods.items():
+        reset_launches()
+        res_f, ms_f, eng = run_zoo_engine(problem, eval_fn, method_kw,
+                                          "fused", ROBUST_ROUNDS, {},
+                                          ROBUST_K)
+        path_launches = launches()
+        res_r, ms_r, _ = run_zoo_engine(problem, eval_fn, method_kw,
+                                        "reference", ROBUST_ROUNDS, {},
+                                        ROBUST_K)
+        check(path_launches["merge_stacked"] > 0,
+              f"zoo robust/{name}: merge_stacked never launched")
+        gaps = hold_fused_vs_reference("robust_a9a", name, res_f, res_r)
+        emit("zoo", scenario="robust_a9a", method=name,
+             optimizer=eng.worker.name, nvidia_smi=smi,
+             residuals_fused=res_f, residuals_reference=res_r,
+             ms_per_local_step_fused=ms_f, ms_per_local_step_reference=ms_r,
+             launches=path_launches, rel_gap=gaps)
+        finals[name] = (res_f, eng)
+    # rerun of one method: the deterministic scatter repeats to the bit
+    res_1, eng_1 = finals["ump"]
+    res_2, ms_2, eng_2 = run_zoo_engine(problem, eval_fn,
+                                        robust_methods["ump"], "fused",
+                                        ROBUST_ROUNDS, {}, ROBUST_K)
+    same = res_1 == res_2 and all(
+        torch.equal(a, b) for a, b in zip(
+            [*eng_1.state.z, *eng_1.state.z_bar, eng_1.state.inner["sum_sq"]],
+            [*eng_2.state.z, *eng_2.state.z_bar, eng_2.state.inner["sum_sq"]]))
+    emit("zoo_rerun", scenario="robust_a9a", method="ump", backend="fused",
+         nvidia_smi=smi, ms_per_local_step=ms_2, bit_identical=same,
+         residuals=res_2)
+    check(same, "zoo robust_a9a/ump: the rerun differs from the first run")
+
+
 def phase_flash_kernels(results):
     """The flash-attention kernel (B12) against its plain version at the
     path's shape and four variants, and its time beside the plain version
@@ -2168,10 +2390,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    phase_device()
+    smi = phase_device()
     phase_build()
     if sys.argv[1:] == ["--sync-wrappers"]:
         phase_sync_wrappers()
+        return 0
+    if sys.argv[1:] == ["--zoo"]:
+        from repro_torch import random as jr
+        from repro_torch.problems import make_bilinear_game
+
+        phase_zoo(make_bilinear_game(jr.PRNGKey(0), n=N, sigma=0.1), smi)
         return 0
     results = phase_kernels()
     phase_codec_kernels(results)
@@ -2183,6 +2411,7 @@ def main() -> int:
     game = phase_main(results)
     phase_codec(results, game)
     phase_robust(results, game)
+    phase_zoo(game, smi)
     del game                       # free the 1 GiB coupling matrix
     phase_lm(results)
     phase_mamba2(results)

@@ -1,5 +1,5 @@
 """Core library: LocalAdaSEG on a worker-stacked fleet state."""
-from . import projections, tree
+from . import metrics, projections, tree
 from .adaseg import (
     AdaSEGConfig,
     AdaSEGState,
@@ -8,10 +8,12 @@ from .adaseg import (
     init,
     local_step,
     run_local_adaseg,
+    sync_state,
     sync_weighted_stacked,
     weighted_worker_average,
 )
-from .types import MinimaxProblem, draw
+from .metrics import kkt_residual
+from .types import MinimaxProblem, draw, from_loss
 from .worker import AdaSEGWorker, LocalWorker
 
 __all__ = [
@@ -23,10 +25,14 @@ __all__ = [
     "StepAux",
     "draw",
     "eta_of",
+    "from_loss",
     "init",
+    "kkt_residual",
     "local_step",
+    "metrics",
     "projections",
     "run_local_adaseg",
+    "sync_state",
     "sync_weighted_stacked",
     "tree",
     "weighted_worker_average",

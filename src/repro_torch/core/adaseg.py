@@ -240,6 +240,15 @@ def sync_weighted_stacked(z_tilde: PyTree, inv_eta: torch.Tensor, *,
     return tree_map(avg, z_tilde)
 
 
+def sync_state(state: AdaSEGState, cfg: AdaSEGConfig, sync_fn
+               ) -> AdaSEGState:
+    """Apply Line 5–8: replace every worker's anchor with the weighted
+    average ``sync_fn(z_tilde, inv_eta)`` (e.g.
+    :func:`sync_weighted_stacked`)."""
+    inv_eta = 1.0 / eta_of(cfg, state.sum_sq)
+    return state._replace(z_tilde=sync_fn(state.z_tilde, inv_eta))
+
+
 def weighted_worker_average(z_stacked: PyTree, counts: torch.Tensor) -> PyTree:
     """Line 14 global output: average the worker axis with weights ∝
     per-worker step counts. Shared by the serial driver and the engine."""

@@ -10,13 +10,17 @@ values where the JAX protocol returns scalars:
   ``(M, 2)`` keys;
 * ``step(problem, state, rngs, enabled=...)`` — one local step of every
   worker; ``enabled`` (``(M,)`` bool or None) masks the update;
-* ``sync_weight(state)`` — ``(M,)`` Line-7 weights (1/η for AdaSEG);
+* ``sync_weight(state)`` — ``(M,)`` Line-7 weights (1/η for AdaSEG; the
+  default is uniform, 1 per worker);
 * ``sync_payload(state)`` / ``merge_synced(state, payload)`` — the part of
   the state the server averages, and how the average is installed;
 * ``output(state)`` — the per-worker output iterate;
-* ``eta(state)`` — ``(M,)`` step sizes, telemetry only;
+* ``eta(state)`` — ``(M,)`` step sizes, telemetry only (default
+  ``1 / sync_weight``);
 * ``derive_rngs(rng, num_workers)`` — how the top-level key splits into
-  (round-stream base, per-worker init keys).
+  (round-stream base, per-worker init keys). The default is the JAX
+  package's historical ``run_local`` pair split, which the optimizer zoo
+  (``repro_torch.optim.MinimaxWorker``) inherits; AdaSEG overrides it.
 
 ``fingerprint`` hashes ``name`` (which encodes the hyper-parameters).
 """
@@ -25,6 +29,8 @@ from __future__ import annotations
 import dataclasses
 import zlib
 from typing import Any
+
+import torch
 
 from .. import random as jr
 from .adaseg import AdaSEGConfig, eta_of, init as adaseg_init, local_step
@@ -65,9 +71,6 @@ class LocalWorker:
              enabled=None) -> PyTree:
         raise NotImplementedError
 
-    def sync_weight(self, state: PyTree):
-        raise NotImplementedError
-
     def sync_payload(self, state: PyTree) -> PyTree:
         raise NotImplementedError
 
@@ -77,11 +80,19 @@ class LocalWorker:
     def output(self, state: PyTree) -> PyTree:
         raise NotImplementedError
 
+    def sync_weight(self, state: PyTree):
+        return torch.ones(state.t.shape[0], dtype=torch.float32,
+                          device=state.t.device)
+
     def eta(self, state: PyTree):
-        raise NotImplementedError
+        w = self.sync_weight(state)
+        return torch.ones_like(w) / w
 
     def derive_rngs(self, rng, num_workers: int):
-        raise NotImplementedError
+        """(rng, M) -> (round-stream base key, (M, 2) per-worker init
+        keys): ``rng0, sub = split(rng)``, ``split(sub, M)``."""
+        rng0, sub = jr.split(rng)
+        return rng0, jr.split(sub, num_workers)
 
     @property
     def fingerprint(self) -> int:

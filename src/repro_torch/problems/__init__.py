@@ -1,4 +1,25 @@
-"""Minimax problem instances (the paper's §4.1 bilinear game)."""
-from .bilinear import BilinearGame, make_bilinear_game
+"""Minimax problem instances: the paper's §4.1 bilinear game, the
+quadratic saddle and distributionally-robust logistic regression."""
+from .bilinear import BilinearGame, game_from_arrays, make_bilinear_game
+from .quadratic import (
+    QuadraticGame,
+    make_quadratic_game,
+    quadratic_game_from_arrays,
+)
+from .robust import (
+    RobustLogistic,
+    make_robust_logistic,
+    robust_logistic_from_arrays,
+)
 
-__all__ = ["BilinearGame", "make_bilinear_game"]
+__all__ = [
+    "BilinearGame",
+    "QuadraticGame",
+    "RobustLogistic",
+    "game_from_arrays",
+    "make_bilinear_game",
+    "make_quadratic_game",
+    "make_robust_logistic",
+    "quadratic_game_from_arrays",
+    "robust_logistic_from_arrays",
+]

@@ -72,11 +72,16 @@ def game_from_arrays(a, b, c, sigma: float, name: str = "bilinear"
         gy = x @ a + c + xi
         return (gx, -gy)
 
+    def mean_oracle(z, _):
+        x, y = z
+        return (y @ a.T + b, -(x @ a + c))
+
     problem = MinimaxProblem(
         init=init,
         sample=sample,
         oracle=oracle,
         project=projections.box(-1.0, 1.0),
+        mean_oracle=mean_oracle,
         name=name,
     )
     return BilinearGame(a=a, b=b, c=c, sigma=sigma, problem=problem)

@@ -1,7 +1,8 @@
 """Parameter-Server runtime, serial path: Algorithm 1 with the built-in
 codecs (identity, stochastic quantization and top-k, with error feedback),
 schedules and fault policies, hostile fleets (Byzantine attacks, DP
-uplinks, robust merges), the server-side outer optimizer, and checkpoints.
+uplinks, robust merges), the server-side outer optimizer, checkpoints, and
+Dirichlet-heterogeneous workers (``partition``).
 The rest of the JAX package's runtime is ported in later slices."""
 from ..core.adaseg import AdaSEGConfig
 from ..core.worker import AdaSEGWorker, LocalWorker
@@ -22,6 +23,11 @@ from .engine import (
     resolve_robust,
 )
 from .faults import BernoulliFaults, FaultPolicy, NoFaults, OutageFaults
+from .partition import (
+    heterogeneous_bilinear,
+    heterogeneous_robust,
+    heterogenize,
+)
 from .robust import (
     ByzantinePolicy,
     CollusionAttack,
@@ -92,6 +98,9 @@ __all__ = [
     "ZeroAttack",
     "check_codec_backend",
     "dense_bytes",
+    "heterogeneous_bilinear",
+    "heterogeneous_robust",
+    "heterogenize",
     "make_serial_chunk",
     "make_sync_stacked",
     "resolve_robust",

@@ -20,7 +20,13 @@ package from one seed:
   ``mode="low"``);
 * ``categorical``          = ``argmax(gumbel + logits)`` over the last axis,
   the first maximum on ties (as XLA's argmax);
-* ``bernoulli``            = ``uniform < p`` (JAX's default ``mode="low"``).
+* ``bernoulli``            = ``uniform < p`` (JAX's default ``mode="low"``);
+* ``randint``              = JAX's two-word draw: ``k1, k2 = split(key)``,
+  ``(hi % span · mult + lo % span) % span`` in wrapping uint32 with
+  ``hi, lo`` the bits of ``k1, k2`` and ``mult = (2¹⁶ % span)² % span``;
+* ``loggamma``             = Marsaglia–Tsang per element (its own key from
+  ``split(key, size)``), α < 1 boosted by ``log(U)/α``;
+* ``dirichlet``            = ``softmax(loggamma(key, α, (*shape, G)))``.
 
 Keys are int64 tensors of shape ``(..., 2)`` holding uint32 words (PyTorch's
 uint32 lacks the arithmetic, so the cipher runs in int64 and masks with
@@ -214,3 +220,104 @@ def bernoulli(key: torch.Tensor, p, shape=()) -> torch.Tensor:
     a float32 tensor that broadcasts against ``(*key_batch, *shape)``."""
     u = uniform(key, shape)
     return u < torch.as_tensor(p, dtype=torch.float32, device=u.device)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), bit for
+    bit: two 32-bit words per value folded into ``[minval, maxval)``.
+
+    >>> v = randint(PRNGKey(0, device="cpu"), (6,), 0, 10)
+    >>> v.dtype, bool(((v >= 0) & (v < 10)).all())
+    (torch.int32, True)
+    """
+    shape = tuple(shape)
+    lo_v, hi_v = int(minval), int(maxval)
+    if not -(1 << 31) <= lo_v <= hi_v <= (1 << 31) - 1:
+        raise ValueError(f"randint range [{lo_v}, {hi_v}) is not int32")
+    k = split(key)
+    higher, lower = bits(k[..., 0, :], shape), bits(k[..., 1, :], shape)
+    span = max(hi_v - lo_v, 1) & _MASK
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span    # uint32 wraps
+    offset = ((higher % span) * mult & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    return (offset + lo_v).to(torch.int32)
+
+
+def _gamma_one_log(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s ``_gamma_one(key, alpha, log_space=True)`` for a
+    flat batch of keys ``(N, 2)`` and concentrations ``(N,)`` (float32).
+    Every element runs its own rejection loop; the batch loops until the
+    last element accepts, finished elements keeping their state (what
+    ``jax.vmap`` of a ``while_loop`` does)."""
+    one = torch.ones_like(alpha)
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - np.float32(1.0 / 3.0)
+    c = (torch.full_like(d, np.float32(1.0 / 3.0))
+         / torch.sqrt(d.double()).float())
+    k = split(keys)
+    key, subkey = k[:, 0], k[:, 1]
+    x_sq = torch.zeros_like(alpha)
+    v_cub = one.clone()
+    u = torch.full_like(alpha, 2.0)
+
+    def rejected(x_sq, v_cub, u):
+        return ((u >= 1.0 - np.float32(0.0331) * (x_sq * x_sq))
+                & (torch.log(u) >= x_sq * 0.5
+                   + d * (1.0 - v_cub + torch.log(v_cub))))
+
+    todo = rejected(x_sq, v_cub, u)
+    while bool(todo.any()):
+        k3 = split(key, 3)
+        x_key, u_key = k3[:, 1], k3[:, 2]
+        key = torch.where(todo[:, None], k3[:, 0], key)
+        x = torch.zeros_like(alpha)
+        v = -one
+        while bool((v <= 0.0).any()):
+            redo = v <= 0.0
+            k2 = split(x_key)
+            x_new = normal(k2[:, 1], ())
+            x = torch.where(redo, x_new, x)
+            v = torch.where(redo, 1.0 + x_new * c, v)
+            x_key = torch.where(redo[:, None], k2[:, 0], x_key)
+        x_sq = torch.where(todo, x * x, x_sq)
+        v_cub = torch.where(todo, v * v * v, v_cub)
+        u = torch.where(todo, uniform(u_key, ()), u)
+        todo = todo & rejected(x_sq, v_cub, u)
+    log_samples = torch.log1p(-uniform(subkey, ()))
+    log_boost = torch.where(boost | (log_samples == 0.0),
+                            torch.zeros_like(alpha),
+                            log_samples * (one / alpha))
+    return torch.log(d) + torch.log(v_cub) + log_boost
+
+
+def loggamma(key: torch.Tensor, a, shape=None) -> torch.Tensor:
+    """``jax.random.loggamma(key, a, shape)`` for one key, in float32:
+    element ``i`` (C order) draws with ``split(key, size)[i]``. Not bit for
+    bit: the loop takes ``log`` of uniforms, and XLA's float32 ``log`` on
+    the CPU is not correctly rounded (an ulp on ~14% of inputs), so the
+    results differ in their last bits, and an acceptance test on the edge
+    could flip (tests hold :func:`dirichlet` at a tolerance)."""
+    a = torch.as_tensor(a, dtype=torch.float32, device=key.device)
+    shape = tuple(a.shape) if shape is None else tuple(shape)
+    if key.shape != (2,):
+        raise ValueError("loggamma takes one key of shape (2,)")
+    alpha = a.expand(shape).reshape(-1)
+    keys = split(key, alpha.numel())
+    return _gamma_one_log(keys, alpha).reshape(shape)
+
+
+def dirichlet(key: torch.Tensor, alpha, shape=()) -> torch.Tensor:
+    """``jax.random.dirichlet(key, alpha, shape)`` in float32: rows of
+    ``shape + (G,)`` on the simplex, ``softmax`` over the last axis of
+    :func:`loggamma` draws (exp of the shifted logs over their sum).
+
+    >>> p = dirichlet(PRNGKey(0, device="cpu"), torch.full((4,), 0.5), (3,))
+    >>> p.shape, bool(torch.allclose(p.sum(-1), torch.ones(3)))
+    (torch.Size([3, 4]), True)
+    """
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=key.device)
+    logs = loggamma(key, alpha, tuple(shape) + tuple(alpha.shape[-1:]))
+    e = torch.exp(logs - logs.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)

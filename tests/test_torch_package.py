@@ -62,7 +62,10 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.kernels.sync_compress.ops, "
             "repro_torch.kernels.flash_attention.kernel, "
             "repro_torch.kernels.ssd_scan.kernel, repro_torch.configs, "
-            "repro_torch.data, repro_torch.models, repro_torch.launch; "
+            "repro_torch.data, repro_torch.models, repro_torch.launch, "
+            "repro_torch.optim, repro_torch.ps.partition, "
+            "repro_torch.problems.quadratic, repro_torch.problems.robust, "
+            "repro_torch.core.metrics; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -164,6 +167,10 @@ DOCTEST_MODULES = [
     "repro_torch.models.ssm",
     "repro_torch.models.transformer", "repro_torch.models.problem",
     "repro_torch.models.worker", "repro_torch.launch.train",
+    "repro_torch.core.types", "repro_torch.core.projections",
+    "repro_torch.core.metrics", "repro_torch.problems.quadratic",
+    "repro_torch.problems.robust", "repro_torch.optim.base",
+    "repro_torch.optim.methods", "repro_torch.ps.partition",
 ]
 
 
