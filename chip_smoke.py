@@ -4,6 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sync-wrappers   # only the sync wrappers' times
     python3 chip_smoke.py --zoo             # only the zoo phase (no result)
+    python3 chip_smoke.py --fleet-rows      # only fleet_rows (no result)
+    python3 chip_smoke.py --wgan            # only the wgan phase (no result)
+    python3 chip_smoke.py --sync-bits OUT   # the sync wrappers' outputs
+    python3 chip_smoke.py --compare-bits A B  # two such files, to the bit
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX. Phases, one JSON line each:
@@ -35,7 +39,13 @@ nothing of JAX. Phases, one JSON line each:
    merge at M in {1, 4, 63, 64} x n in {16384, 16421}, unit weights,
    normalised and gated, reruns bit-identical; ``merge_fleet`` at M = 16384
    (its weights in the opt-in shared memory); ``merge_lm_leaf`` times it
-   and the matmul at the lm path's largest leaf, (4, 151936 x 896). The
+   and the matmul at the lm path's largest leaf, (4, 151936 x 896).
+   ``fleet_rows`` holds the sync kernels B5-B10 at a fleet of 70000
+   workers, n = 4096 (past the 65535 rows a grid's y dimension takes): the
+   uplink kernels exactly, with a dead row past 65535; B5 (its weights
+   read from global memory past the opt-in shared memory) and B10's
+   streamed path (its plain version on 64 of the columns) at 1e-5, each
+   rerun bit-identical; every launch timed. The
    scale pass (B6) is also held and timed at that leaf (a ``kernel`` line
    with its ``shape``). Beside B6 and the outer step (B11), whose small
    shapes take little more than a launch, ``launch_floor_ms`` is the time
@@ -98,7 +108,20 @@ nothing of JAX. Phases, one JSON line each:
    robust row: heterogeneous robust logistic regression at LIBSVM a9a's
    widths (32561 × 123, batch 128), LocalAdaSEG and the five methods,
    K=5, R=2, evaluated by ``kkt_residual``, fused and reference, and a
-   rerun of UMP that must repeat to the bit (``zoo_rerun``);
+   rerun of UMP that must repeat to the bit (``zoo_rerun``); then ``wgan``,
+   the paper's §5 comparison: WGAN-GP at its full default width (hidden
+   64, batch 64) as a ``ModelWorker`` on ``PSEngine`` with M=64, K=20,
+   R=40, homogeneous and ``heterogeneous_wgan`` (alpha 0.6), fused,
+   reference and fused under q8, beside ``benchmarks/bench_wgan.py``'s
+   baselines MB-UMP and MB-ASMP (``run_serial`` on a minibatch of M) and
+   LocalAdam (lr 2e-3, ``PSEngine``): W-estimates and moment distances
+   every 10 rounds and ms per local step, every value finite, B1, B2 and
+   B5 (B6 and B7 under q8) launched, fused vs reference W-estimates within
+   ``TOL_WGAN_TRACE`` over the first 10 rounds (recorded after), a fused
+   rerun and a run with spans and metrics off, of 10 rounds each,
+   bit-identical to the first run's first 10 rounds,
+   the Perfetto export valid and the metrics' bytes up equal to the
+   trace's (``wgan_checks``);
 9. flash_kernels — the flash-attention kernel (B12) against its plain
    PyTorch version on unit-normal inputs, within 2e-5: the language-model
    path's shape (B=1, H=14, Kh=2, S=T=1024, D=64, causal), a sliding
@@ -170,9 +193,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak
-# and dense TF32 tensor-core peak.
-HBM_BYTES_PER_S = 3.35e12
+# NVIDIA H100 SXM data sheet: f32 (non-tensor-core) peak and dense TF32
+# tensor-core peak; the HBM3 bandwidth is the package's
+# (repro_torch.hardware.HBM_BW, set in CARD by main).
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 # f32 instructions that are not FMAs (compares, selects, adds): 128 lanes per
@@ -185,7 +208,8 @@ F32_LANES_PER_SM_CLOCK = 128
 INT32_LANES_PER_SM_CLOCK = 64
 # exponentials (MUFU ex2): 16 per SM per clock
 MUFU_PER_SM_CLOCK = 16
-CARD = {"int32_ops_per_s": None, "f32_issue_per_s": None, "mufu_per_s": None}
+CARD = {"hbm_bytes_per_s": None, "int32_ops_per_s": None,
+        "f32_issue_per_s": None, "mufu_per_s": None}
 # Live int32 operations per element of the quantize kernel: 68 for
 # threefry2x32 once the compiler drops what the first output word does not
 # need (19 mixes of add, funnel shift and xor, the last mix's add, 9 key
@@ -283,6 +307,28 @@ TOL_SSD_ORACLE = 2e-4
 # largest |entry|; f32 sums of at most 256 terms in another order
 TOL_SSD_PHASE = 1e-5
 MAMBA_ARCH = "mamba2-370m"
+# The sync kernels past 65535 workers (ROADMAP C15): B5-B10 at a fleet of
+# FLEET_ROWS (1.15 GB a (M, n) array); B10's plain version (O(M^2) eager
+# passes) is held on FLEET_TRIM_COLS columns of it (each column is merged
+# on its own), the row past 65535 dead in the uplink checks.
+FLEET_ROWS = (70000, 4096)
+FLEET_TRIM_COLS = 64
+FLEET_DEAD_ROW = 69999
+# The wgan phase: the paper's §5 WGAN-GP (src/repro/problems/wgan.py) at
+# make_wgan_problem's full default width (latent 8, hidden 64, batch 64,
+# gp 1), seed 0, with examples/wgan_train.py's and benchmarks/bench_wgan.py's
+# AdaSEG settings; the fleet M = 64, K = 20, R = 40, homogeneous and
+# heterogeneous_wgan at alpha 0.6 (bench_wgan.py's); LocalAdam's lr 2e-3.
+WGAN_M, WGAN_K, WGAN_R = 64, 20, 40
+WGAN_ALPHA, WGAN_ADAM_LR = 0.6, 2e-3
+WGAN_EVERY = 10      # rounds between the printed W-estimates and distances
+# Fused against reference W-estimates: the JAX package's bar between its
+# own two backends on the WGAN (tests/test_step_backends.py:116, rtol 1e-3
+# and atol 1e-4), over the first WGAN_GATED_ROUNDS rounds; later rounds are
+# recorded, not gated (the penalty's double backward amplifies the ulps in
+# which B1's single rounding of z* - eta g differs, ROADMAP C13, C20).
+TOL_WGAN_TRACE = dict(rtol=1e-3, atol=1e-4)
+WGAN_GATED_ROUNDS = 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -348,7 +394,7 @@ def bound(bytes_moved: float, flops: float, int_ops: float = 0.0,
     """Least ms for the work: the larger of the bytes over the HBM rate and
     the operations (f32 FLOPs, int32 and non-FMA f32 operations, each over
     its own peak) over time."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_bytes = bytes_moved / CARD["hbm_bytes_per_s"] * 1e3
     t_ops = max(flops / F32_FLOPS_PER_S,
                 int_ops / CARD["int32_ops_per_s"] if int_ops else 0.0,
                 issue_ops / CARD["f32_issue_per_s"] if issue_ops else 0.0
@@ -1491,6 +1537,65 @@ def phase_sync_wrappers():
     torch.cuda.empty_cache()
 
 
+def phase_sync_bits(path):
+    """The sync wrappers' outputs on fixed inputs, saved to ``path`` (CPU
+    tensors, ``torch.save``): B5 at (M, N) with unit, normalised and gated
+    weights, at (4, N_RAGGED) and at MERGE_FLEET; B6-B9 at (M, N) with
+    weights, residuals and a dead row; B10 at (M, N_RAGGED). It calls only
+    the wrappers, so another tree's outputs can be saved the same way and
+    held against these to the bit (``--compare-bits``)."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+
+    out = {}
+    z, ef, old = rand(M, N), rand(M, N) * 1e-3, rand(M, N)
+    w = rand(M) + 1.5
+    recv = (torch.arange(M, device=dev) % 3 != 0).float()
+    alive = torch.ones(M, device=dev)
+    alive[DEAD_ROW] = 0.0
+    keys = torch.randint(0, 2 ** 32, (M, 2), generator=gen, device=dev)
+    out["merge_unit"] = sk.merge_stacked(z)
+    out["merge_normalize"] = sk.merge_stacked(z, w, normalize=True)
+    out["merge_gated"] = sk.merge_stacked(z, w / w.sum(), recv, old)
+    zr = rand(4, N_RAGGED)
+    out["merge_ragged"] = sk.merge_stacked(zr, rand(4) + 1.5, normalize=True)
+    zf = rand(*MERGE_FLEET)
+    out["merge_fleet"] = sk.merge_stacked(zf, rand(MERGE_FLEET[0]) + 1.5,
+                                          normalize=True)
+    out["stats"] = sk.uplink_stats(z, w, ef)
+    scale = torch.clamp(out["stats"], min=1e-30)
+    out["quantize_sent"], out["quantize_ef"] = sk.quantize_uplink(
+        z, keys, scale, w, ef, alive, levels=LEVELS)
+    out["eff"] = sk.eff_uplink(z, w, ef)
+    mask = (torch.rand(M, N, generator=gen, device=dev) < 0.25).to(
+        torch.uint8)
+    out["mask_sent"], out["mask_ef"] = sk.mask_uplink(out["eff"], mask, ef,
+                                                      alive)
+    out["trimmed"] = sk.trimmed_merge_stacked(
+        rand(M, N_RAGGED), w, torch.ones(M, device=dev), trim=TRIMS[0])
+    torch.save({k: v.cpu() for k, v in out.items()}, path)
+    emit("sync_bits", path=path, outputs=sorted(out))
+
+
+def compare_bits(a, b) -> int:
+    """Exit code 0 when the two ``--sync-bits`` files hold the same keys
+    and every output is bit-identical; prints which are."""
+    import torch
+
+    x, y = torch.load(a), torch.load(b)
+    equal = {k: k in y and torch.equal(x[k], y[k]) for k in sorted(x)}
+    same = all(equal.values()) and sorted(x) == sorted(y)
+    emit("compare_bits", a=a, b=b, equal=equal, all_equal=same)
+    return 0 if same else 1
+
+
 def phase_robust(results, game):
     """The hostile fleet and the outer optimizer on the main path's game,
     each run through the fused and the reference backends; then the
@@ -1897,7 +2002,7 @@ def phase_flash_kernels(results):
         # the faster of two routes to f32-accurate products: f32 FMAs, or
         # the split product's three TF32 terms on the tensor cores beside one
         # exponential a visible pair on the MUFU
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_bytes = bytes_moved / CARD["hbm_bytes_per_s"] * 1e3
         b_ms = min(bound(bytes_moved, flops)[0],
                    max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3,
                        n_pairs / CARD["mufu_per_s"] * 1e3))
@@ -2381,6 +2486,344 @@ def phase_mamba2(results):
              "ssd_scan", 128)
 
 
+def event_ms(fn):
+    """``(result, ms)`` of one call of ``fn``, timed by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_fleet_rows(smi):
+    """The sync kernels B5-B10 at FLEET_ROWS, past the 65535 rows a grid's
+    y dimension takes (ROADMAP C15): each against its plain version, the
+    uplink kernels exactly (a dead row past 65535), B5 (its weights past
+    the opt-in shared memory, read from global memory) at TOL_STAT, B10's
+    streamed path on FLEET_TRIM_COLS columns at TOL_STAT; B5 and B10 rerun
+    for bit equality. Each wrapper is timed warm (``time_ms``, its outputs
+    made by each call), B10 by its two launches, beside its bound."""
+    import torch
+
+    from repro_torch.kernels.sync_compress import kernel as sk
+    from repro_torch.kernels.sync_compress import ref as sr
+
+    m, n = FLEET_ROWS
+    elems = m * n
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    z = torch.rand(m, n, generator=gen, device=dev) * 2 - 1
+    ef = (torch.rand(m, n, generator=gen, device=dev) - 0.5) * 0.1
+    w = torch.rand(m, generator=gen, device=dev) * 1.9 + 0.1
+    keys = torch.randint(0, 2 ** 32, (m, 2), generator=gen, device=dev)
+    alive = torch.ones(m, device=dev)
+    alive[FLEET_DEAD_ROW] = 0.0
+    rows = {}
+
+    def hold(name, got, want, tol, fn, bytes_per_elem, **ops):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(max_abs(a, b) for a, b in zip(got, want))
+        check(err <= tol, f"fleet_rows {name}: max abs err {err} > {tol}")
+        b_ms, b_by = bound(bytes_per_elem * elems, 0.0, **ops)
+        rows[name] = dict(max_abs_err=err, tol=tol, bound_ms=b_ms,
+                          bound_by=b_by)
+        if fn is not None:
+            rows[name]["ms"] = time_ms(fn, reps=3, trials=3)
+
+    stats = sk.uplink_stats(z, w, ef)
+    hold("uplink_stats", stats, sr.uplink_stats_ref(z, ef, w), 0.0,
+         lambda: sk.uplink_stats(z, w, ef), 8)
+    scale = torch.clamp(stats, min=1e-30)
+
+    def quantize():
+        return sk.quantize_uplink(z, keys, scale, w, ef, alive,
+                                  levels=LEVELS)
+
+    want = sr.quantize_uplink_ref(z, keys, scale, levels=LEVELS, ef=ef, w=w,
+                                  alive=alive)
+    hold("quantize_uplink", quantize(), want, 0.0, quantize, 16,
+         int_ops=QUANTIZE_INT_OPS * elems)
+    del want
+    eff = sk.eff_uplink(z, w, ef)
+    hold("eff_uplink", eff, sr.eff_uplink_ref(z, ef, w), 0.0,
+         lambda: sk.eff_uplink(z, w, ef), 12)
+    mask = (torch.rand(m, n, generator=gen, device=dev) < 0.25).to(
+        torch.uint8)
+    hold("mask_uplink", sk.mask_uplink(eff, mask, ef, alive),
+         sr.mask_uplink_ref(eff, mask, alive=alive, ef=ef), 0.0,
+         lambda: sk.mask_uplink(eff, mask, ef, alive), 13)
+    del eff, mask, ef
+    torch.cuda.empty_cache()
+
+    # B5: 70000 normalised terms a column in another order than torch.sum
+    got = sk.merge_stacked(z, w, normalize=True)
+    again = sk.merge_stacked(z, w, normalize=True)
+    hold("merge_stacked", got, sr.merge_ref(z, w, normalize=True), TOL_STAT,
+         lambda: sk.merge_stacked(z, w, normalize=True), 8)
+    check(torch.equal(got, again), "fleet_rows merge_stacked: reruns differ")
+    rows["merge_stacked"].update(reruns_bit_identical=True,
+                                 shared_rows=sk.MAX_ROWS)
+    del got, again
+
+    # B10 streamed: the kernel on the whole leaf, twice, each launch timed;
+    # the plain version on its first FLEET_TRIM_COLS columns
+    incl = torch.ones(m, device=dev)
+    trim = m // 5
+    check(sk.trimmed_path(m) == sk.TRIMMED_STREAMED,
+          "fleet_rows: B10 not on its streamed path")
+    got, ms = event_ms(lambda: sk.trimmed_merge_stacked(z, w, incl,
+                                                        trim=trim))
+    again, ms2 = event_ms(lambda: sk.trimmed_merge_stacked(z, w, incl,
+                                                           trim=trim))
+    cols = z[:, :FLEET_TRIM_COLS].contiguous()
+    want = sr.trimmed_merge_ref(cols, w, incl, trim=trim)
+    hold("trimmed_merge_stacked", got[:, :FLEET_TRIM_COLS], want, TOL_STAT,
+         None, 8, issue_ops=TRIM_PAIR_OPS * m * (m - 1) // 2 * n)
+    check(torch.equal(got, again),
+          "fleet_rows trimmed_merge_stacked: reruns differ")
+    rows["trimmed_merge_stacked"].update(
+        ms=[ms, ms2], reruns_bit_identical=True, path="streamed", trim=trim,
+        plain_columns=FLEET_TRIM_COLS)
+    emit("fleet_rows", nvidia_smi=smi, shape=[m, n], dead_row=FLEET_DEAD_ROW,
+         kernels=rows)
+    del z, w, keys, got, again, want, cols
+    torch.cuda.empty_cache()
+
+
+def wgan_scores(wg, z, rng):
+    """(W-estimate, moment distance) of one iterate."""
+    return (float(wg.wasserstein_estimate(z, rng)),
+            float(wg.moment_distance(z, rng)))
+
+
+def wgan_leaves(eng):
+    """An AdaSEG WGAN engine's output and fleet state, cloned."""
+    return [v.clone() for v in (*eng.z_bar(), *eng.state.z_tilde,
+                                eng.state.sum_sq)]
+
+
+def run_wgan_engine(wg, problem, backend, method_kw, eval_rng,
+                    until=None, **engine_kw):
+    """One WGAN fleet through PSEngine on the card, driven incrementally
+    (``run(until_round=r)`` every WGAN_EVERY rounds up to ``until``, as
+    the example does): the per-round W-estimates (the trace's residuals),
+    the scores at those rounds, ms per local step of the fleet, the
+    launches, the engine, and (AdaSEG workers) its leaves after the first
+    WGAN_EVERY rounds."""
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.ps import PSConfig, PSEngine
+
+    until = WGAN_R if until is None else until
+    reset_launches()
+    eng = PSEngine(problem, PSConfig(num_workers=WGAN_M, rounds=WGAN_R,
+                                     codec_backend=backend, **method_kw),
+                   rng=jr.PRNGKey(1),
+                   eval_fn=lambda z: wg.wasserstein_estimate(z, eval_rng),
+                   **engine_kw)
+    torch.cuda.synchronize()
+    wall, scores, first = 0.0, {}, None
+    for r in range(WGAN_EVERY, until + 1, WGAN_EVERY):
+        t0 = time.perf_counter()
+        z = eng.run(until_round=r)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        scores[r] = wgan_scores(wg, z, eval_rng)
+        if first is None and hasattr(eng.state, "z_tilde"):
+            first = wgan_leaves(eng)
+    trace = [rec.residual for rec in eng.trace.rounds]
+    return dict(trace=trace, scores=scores, launches=launches(),
+                ms=wall * 1e3 / (until * WGAN_K), engine=eng,
+                first_leaves=first)
+
+
+def phase_wgan(smi):
+    """The paper's §5 comparison through the port: WGAN-GP at full width,
+    LocalAdaSEG on PSEngine (ModelWorker) fused, reference and fused under
+    q8, homogeneous and heterogeneous, and bench_wgan.py's baselines
+    (MB-UMP, MB-ASMP by run_serial on a minibatch of M, LocalAdam on
+    PSEngine); a fused rerun bit-identical, spans and metrics on and off
+    bit-identical, the Perfetto export valid, the metrics' bytes up equal
+    to the trace's."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.core import AdaSEGConfig
+    from repro_torch.models import ModelWorker
+    from repro_torch.obs import (
+        MetricsRegistry,
+        SpanTracer,
+        save_trace_events,
+        validate_trace_events,
+    )
+    from repro_torch.optim import (
+        MinimaxWorker,
+        adam_minimax,
+        asmp,
+        minibatch,
+        run_serial,
+        ump,
+    )
+    from repro_torch.problems import make_wgan_problem
+    from repro_torch.ps import StochasticQuantizeCompressor, heterogeneous_wgan
+
+    wg = make_wgan_problem(jr.PRNGKey(0))
+    eval_rng = jr.PRNGKey(5)
+    cfg = AdaSEGConfig(g0=50.0, diameter=1.0, alpha=1.0, k=WGAN_K,
+                       average_output=False)
+    het = heterogeneous_wgan(wg, WGAN_M, jr.PRNGKey(9), alpha=WGAN_ALPHA)
+    emit("wgan_setup", nvidia_smi=smi, latent=wg.latent_dim,
+         data=wg.data_dim, hidden=64, batch=wg.batch, gp_weight=wg.gp_weight,
+         workers=WGAN_M, k=WGAN_K, rounds=WGAN_R, alpha=WGAN_ALPHA,
+         g0=cfg.g0, diameter=cfg.diameter, tol=TOL_WGAN_TRACE,
+         gated_rounds=WGAN_GATED_ROUNDS)
+
+    def adaseg(backend, problem):
+        return dict(worker=ModelWorker(cfg, backend=backend,
+                                       arch=problem.name), local_k=WGAN_K)
+
+    def finite(label, run):
+        vals = list(run["trace"]) + [v for s in run["scores"].values()
+                                     for v in s]
+        check(all(v is not None and math.isfinite(v) for v in vals),
+              f"wgan {label}: a non-finite score {vals}")
+
+    def report(label, scenario, backend, run, **extra):
+        finite(f"{scenario}/{label}/{backend}", run)
+        emit("wgan", scenario=scenario, method=label, backend=backend,
+             nvidia_smi=smi, w_estimate={str(r): s[0] for r, s in
+                                         run["scores"].items()},
+             moment_distance={str(r): s[1] for r, s in run["scores"].items()},
+             ms_per_local_step=run["ms"], **extra)
+
+    path_kernels = ("adaseg_explore", "adaseg_anchor", "merge_stacked")
+    q8_kernels = path_kernels + ("uplink_stats", "quantize_uplink")
+    first = None
+    for scenario, problem in (("homog", wg.problem), ("hetero", het)):
+        fused = run_wgan_engine(wg, problem, "fused",
+                                adaseg("fused", problem), eval_rng)
+        for k in path_kernels:
+            check(fused["launches"][k] > 0,
+                  f"wgan {scenario}: {k} never launched on the path")
+        ref = run_wgan_engine(wg, problem, "reference",
+                              adaseg("reference", problem), eval_rng)
+        gaps = [abs(a - b) for a, b in zip(fused["trace"], ref["trace"])]
+        bars = [TOL_WGAN_TRACE["atol"] + TOL_WGAN_TRACE["rtol"] * abs(b)
+                for b in ref["trace"]]
+        gated = all(g <= b for g, b in zip(gaps[:WGAN_GATED_ROUNDS],
+                                           bars[:WGAN_GATED_ROUNDS]))
+        report("LocalAdaSEG", scenario, "fused", fused,
+               launches=fused["launches"], w_trace=fused["trace"])
+        report("LocalAdaSEG", scenario, "reference", ref,
+               w_trace=ref["trace"], abs_gap_vs_fused=gaps,
+               first_round_past_tol=next(
+                   (i for i, (g, b) in enumerate(zip(gaps, bars)) if g > b),
+                   None))
+        check(gated, f"wgan {scenario}: fused vs reference W-estimates part "
+                     f"within the first {WGAN_GATED_ROUNDS} rounds: {gaps}")
+        q8 = run_wgan_engine(
+            wg, problem, "fused",
+            dict(adaseg("fused", problem),
+                 compressor=StochasticQuantizeCompressor(bits=8)), eval_rng)
+        for k in q8_kernels:
+            check(q8["launches"][k] > 0,
+                  f"wgan {scenario}/q8: {k} never launched on the path")
+        report("LocalAdaSEG", scenario, "fused_q8", q8,
+               launches=q8["launches"], w_trace=q8["trace"])
+        if first is None:
+            first = fused
+        del ref, q8
+
+        # bench_wgan.py's baselines; the central minibatch methods draw from
+        # the mixture of the workers' distributions under hetero
+        p_central = problem
+        if problem.sample_worker is not None:
+            def mixed_sample(rngs, p=problem):
+                k = jr.split(rngs)
+                wid = jr.randint(k[..., 0, :], (), 0, WGAN_M)
+                return p.sample_worker(k[..., 1, :], wid)
+
+            p_central = dataclasses.replace(problem, sample=mixed_sample,
+                                            sample_worker=None)
+        for label, opt in (("MB-UMP", ump(50.0, 1.0)),
+                           ("MB-ASMP", asmp(50.0, 1.0))):
+            mb = minibatch(p_central, WGAN_M)
+            steps = WGAN_R * WGAN_K
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, hist = run_serial(opt, mb, steps=steps, rng=jr.PRNGKey(2),
+                                 record_every=WGAN_EVERY * WGAN_K)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            scores = {WGAN_EVERY * (i + 1): wgan_scores(
+                wg, tuple(v[i] for v in hist), eval_rng)
+                for i in range(hist[0].shape[0])}
+            report(label, scenario, "plain", dict(trace=[], scores=scores,
+                                                  ms=ms))
+        adam = run_wgan_engine(
+            wg, problem, "fused",
+            dict(worker=MinimaxWorker(adam_minimax(WGAN_ADAM_LR)),
+                 local_k=WGAN_K), eval_rng)
+        check(adam["launches"]["merge_stacked"] > 0,
+              f"wgan {scenario}/LocalAdam: merge_stacked never launched")
+        # bench_wgan.py scores LocalAdam by worker 0's iterate
+        z0 = tuple(v[0] for v in adam["engine"].state.z)
+        report("LocalAdam", scenario, "fused", dict(
+            adam, scores={WGAN_R: wgan_scores(wg, z0, eval_rng)}),
+            launches=adam["launches"], w_trace_zbar=adam["trace"])
+        del adam
+
+    # a rerun, then a run with spans and metrics off, each of the first
+    # WGAN_EVERY rounds: bit-identical to the first run's rounds
+    def same_as_first(run):
+        n = WGAN_EVERY
+        return run["trace"] == first["trace"][:n] and all(
+            torch.equal(a, b) for a, b in zip(first["first_leaves"],
+                                              run["first_leaves"]))
+
+    again = run_wgan_engine(wg, wg.problem, "fused",
+                            adaseg("fused", wg.problem), eval_rng,
+                            until=WGAN_EVERY)
+    same = same_as_first(again)
+    check(same, "wgan homog/fused: the rerun differs from the first run")
+    off = run_wgan_engine(wg, wg.problem, "fused",
+                          adaseg("fused", wg.problem), eval_rng,
+                          until=WGAN_EVERY, tracer=SpanTracer(enabled=False),
+                          metrics=MetricsRegistry(enabled=False))
+    same_off = same_as_first(off)
+    check(same_off, "wgan homog/fused: spans and metrics off changed the run")
+    eng = first["engine"]
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = save_trace_events(f"{tmp}/wgan_trace.json", eng.tracer)
+    validate_trace_events(payload)
+    up_metrics = eng.metrics.total("bytes_up")
+    up_trace = sum(r.bytes_up for r in eng.trace.rounds)
+    check(up_metrics == up_trace,
+          f"wgan: metrics bytes_up {up_metrics} != trace's {up_trace}")
+    walls = eng.metrics.histogram("round_wall_s")
+    rec = next(r for r in eng.metrics.records if r["name"] == "round_wall_s")
+    emit("wgan_checks", nvidia_smi=smi, rerun_bit_identical=same,
+         obs_off_bit_identical=same_off, compared_rounds=WGAN_EVERY,
+         ms_per_local_step_off=off["ms"],
+         ms_per_local_step_rerun=again["ms"],
+         trace_events=len(payload["traceEvents"]), trace_valid=True,
+         bytes_up_metrics=up_metrics, bytes_up_trace=up_trace,
+         round_wall_s=walls,
+         modeled_hbm_passes=rec["labels"]["modeled_hbm_passes"],
+         modeled_hbm_s=rec["labels"]["modeled_hbm_s"])
+    del first, again, off, eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2392,18 +2835,34 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    # the two-tree modes: they use nothing a parent tree may lack
     if sys.argv[1:] == ["--sync-wrappers"]:
         phase_sync_wrappers()
         return 0
+    if sys.argv[1:2] == ["--sync-bits"] and len(sys.argv) == 3:
+        phase_sync_bits(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--compare-bits"] and len(sys.argv) == 4:
+        return compare_bits(sys.argv[2], sys.argv[3])
+    from repro_torch.hardware import HBM_BW
+
+    CARD["hbm_bytes_per_s"] = HBM_BW
     if sys.argv[1:] == ["--zoo"]:
         from repro_torch import random as jr
         from repro_torch.problems import make_bilinear_game
 
         phase_zoo(make_bilinear_game(jr.PRNGKey(0), n=N, sigma=0.1), smi)
         return 0
+    if sys.argv[1:] == ["--fleet-rows"]:
+        phase_fleet_rows(smi)
+        return 0
+    if sys.argv[1:] == ["--wgan"]:
+        phase_wgan(smi)
+        return 0
     results = phase_kernels()
     phase_codec_kernels(results)
     phase_merge_shapes()
+    phase_fleet_rows(smi)
     phase_robust_kernels(results)
     phase_sync_wrappers()
     phase_flash_kernels(results)
@@ -2413,6 +2872,7 @@ def main() -> int:
     phase_robust(results, game)
     phase_zoo(game, smi)
     del game                       # free the 1 GiB coupling matrix
+    phase_wgan(smi)
     phase_lm(results)
     phase_mamba2(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)

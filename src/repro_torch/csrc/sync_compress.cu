@@ -34,8 +34,12 @@
 // order within a slice, then the slices in order; fixed, with no atomics, so
 // reruns are bit-identical (S = 1 is the first design's order). The weights,
 // normalised once per block when asked, sit in shared memory (above 48 KB
-// the launcher opts in to the larger carve-out, so M <= 57088 at 227 KB);
-// the ragged tail is masked by the column bound.
+// the launcher opts in to the larger carve-out, so M <= 57088 at 227 KB).
+// A fleet whose weights do not fit there reads them from global memory
+// through the read-only path instead (__ldg: the M weights are read by
+// every block and stay in L1 and L2), normalised at each use by the same
+// total, summed by one thread in row order as the shared path sums it, so
+// both give the same bits. The ragged tail is masked by the column bound.
 //
 // The codec uplink kernels replace the Pallas kernels of the same file that
 // run through _uplink_call (pallas_call :313):
@@ -52,12 +56,13 @@
 // cost 70 live int32 operations per element, which at 64 lanes per SM per
 // clock is of the same order as its 16 B of traffic.
 //
-// Design: the grid is (column tiles x workers). A block owns one tile of one
-// worker's row and reads that worker's scalars once; each thread owns
-// columns of the tile (float4 when the row length and pointers allow it),
-// the ragged tail is masked by the column bound, and no sum uses atomics.
-// A dead worker's block reads no payload: it writes sent = 0 and copies its
-// frozen residual.
+// Design: the grid is one block a (worker, column tile), the rows folded
+// into gridDim.x (row-major), so a fleet of any size fits. A block owns one
+// tile of one worker's row and reads that worker's scalars once; each
+// thread owns columns of the tile (float4 when the row length and pointers
+// allow it), the ragged tail is masked by the column bound, and no sum uses
+// atomics. A dead worker's block reads no payload: it writes sent = 0 and
+// copies its frozen residual.
 //
 // stats (B6) finishes each row in the same launch. What limited the first
 // design (tiles of 2048 columns, a loop of float4 loads, partial maxima
@@ -225,10 +230,12 @@ constexpr int kMergeThreads = 256;
 constexpr int kMergeBatch = 8;
 constexpr int kMergeMaxSlices = 8;
 constexpr int kMergeFillBlocks = 128;  // about one block for each of 132 SMs
+// Shared memory a block may opt in to on an H100 (227 KB).
+constexpr size_t kMergeMaxSmem = 232448;
 
 // Dynamic shared memory: the slices' partial sums (S > 1), then the rows
-// weights (w given).
-template <int V, int S>
+// weights (w given, G false). G: the weights are read from global memory.
+template <int V, int S, bool G>
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
              const float* __restrict__ recv, const float* __restrict__ old,
@@ -257,7 +264,7 @@ merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
     }
   };
   load_batch(r0);
-  if (w != nullptr) {
+  if (w != nullptr && !G) {
     for (int i = threadIdx.x; i < rows; i += kMergeThreads) wsh[i] = w[i];
     __syncthreads();
     if (normalize) {
@@ -270,13 +277,30 @@ merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
       for (int i = threadIdx.x; i < rows; i += kMergeThreads) wsh[i] /= total;
       __syncthreads();
     }
+  } else if (w != nullptr && normalize) {
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int i = 0; i < rows; ++i) s += __ldg(w + i);
+      total = s;
+    }
+    __syncthreads();
   }
+  // row i's weight: staged, or read through the read-only path (and divided
+  // by the total as the staged weights were)
+  auto weight = [&](int i) {
+    if constexpr (G) {
+      const float wi = __ldg(w + i);
+      return normalize ? wi / total : wi;
+    } else {
+      return wsh[i];
+    }
+  };
   float acc[V] = {};
   for (int i0 = r0; i0 < r1;) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (i0 + u < r1) {
-        const float wi = (w != nullptr) ? wsh[i0 + u] : 1.f;
+        const float wi = (w != nullptr) ? weight(i0 + u) : 1.f;
 #pragma unroll
         for (int v = 0; v < V; ++v) {
           acc[v] = (w != nullptr) ? acc[v] + wi * zv[u][v] : acc[v] + zv[u][v];
@@ -317,21 +341,36 @@ merge_kernel(const float* __restrict__ z, const float* __restrict__ w,
   }
 }
 
+template <int V, int S, bool G>
+int merge_launch_as(const float* z, const float* w, const float* recv,
+                    const float* old, float* out, int rows, int n,
+                    int normalize, unsigned blocks, size_t smem,
+                    cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_kernel<V, S, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  merge_kernel<V, S, G><<<blocks, kMergeThreads, smem, s>>>(
+      z, w, recv, old, out, rows, n, normalize);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weights in shared memory where they fit beside the partial sums, else
+// read from global memory (G).
 template <int V, int S>
 int merge_launch(const float* z, const float* w, const float* recv,
                  const float* old, float* out, int rows, int n, int normalize,
                  unsigned blocks, cudaStream_t s) {
-  const size_t smem = ((S > 1 ? kMergeThreads * V : 0) + (w != nullptr ? rows : 0))
-                      * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_kernel<V, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t part = (S > 1 ? kMergeThreads * V : 0) * sizeof(float);
+  const size_t staged = part + (w != nullptr ? rows : 0) * sizeof(float);
+  if (staged <= kMergeMaxSmem) {
+    return merge_launch_as<V, S, false>(z, w, recv, old, out, rows, n,
+                                        normalize, blocks, staged, s);
   }
-  merge_kernel<V, S><<<blocks, kMergeThreads, smem, s>>>(z, w, recv, old, out,
-                                                         rows, n, normalize);
-  return static_cast<int>(cudaGetLastError());
+  return merge_launch_as<V, S, true>(z, w, recv, old, out, rows, n, normalize,
+                                     blocks, part, s);
 }
 
 template <int V>
@@ -358,7 +397,7 @@ int merge_dispatch(const float* z, const float* w, const float* recv,
 }
 
 // ---------------------------------------------------------------------------
-// Codec uplink (B6-B9): grid (column tiles x workers), V columns per thread
+// Codec uplink (B6-B9): a block a (worker, column tile), V columns per thread
 // and step (V = 4: float4 loads and stores).
 // ---------------------------------------------------------------------------
 constexpr int kUpThreads = 256;
@@ -373,16 +412,23 @@ __device__ __forceinline__ void load(const uint8_t* p, uint8_t (&v)[V]) {
   }
 }
 
-// The block's slice of its worker's row: columns [start, end) of row m.
+// The block's slice of its worker's row: columns [start, end) of row m,
+// tile `index` of the row's `tiles`. The grid is one dimension, row-major
+// (block m * tiles + index): gridDim.x takes 2^31 - 1 blocks where gridDim.y
+// stops at 65535 rows.
 struct RowTile {
   int m;
   int64_t base;
   int start;
   int end;
+  unsigned index;
+  unsigned tiles;
   __device__ RowTile(int n, int tile) {
-    m = blockIdx.y;
+    tiles = static_cast<unsigned>((n + tile - 1) / tile);
+    m = static_cast<int>(blockIdx.x / tiles);
+    index = blockIdx.x - static_cast<unsigned>(m) * tiles;
     base = static_cast<int64_t>(m) * n;
-    start = blockIdx.x * tile;
+    start = static_cast<int>(index) * tile;
     end = min(start + tile, n);
   }
 };
@@ -522,13 +568,13 @@ stats_kernel(const float* __restrict__ z, const float* __restrict__ w,
   if (threadIdx.x >= 32) return;      // warp 0 finishes the block
   const float mx =
       warp_max(threadIdx.x < kUpThreads / 32 ? smem[threadIdx.x] : 0.f);
-  const unsigned tiles = gridDim.x;
+  const unsigned tiles = t.tiles;
   if (tiles == 1) {
     if (threadIdx.x == 0) out[t.m] = mx;
     return;
   }
   float* row = part + static_cast<int64_t>(t.m) * tiles;
-  if (!arrived_last(row + blockIdx.x, mx, tickets + t.m, tiles)) return;
+  if (!arrived_last(row + t.index, mx, tickets + t.m, tiles)) return;
   float r = 0.f;
   for (unsigned i = threadIdx.x; i < tiles; i += 32) {
     r = fmaxf(r, __ldcg(row + i));
@@ -1004,9 +1050,13 @@ outer_kernel(const float* __restrict__ g, const float* __restrict__ z,
 
 __global__ void empty_kernel() {}
 
-dim3 uplink_grid(int rows, int n, int tile) {
-  return dim3(static_cast<unsigned>((n + tile - 1) / tile),
-              static_cast<unsigned>(rows));
+// The uplink kernels' grid: a block a (row, tile), rows folded into
+// gridDim.x. False when the blocks exceed gridDim.x's 2^31 - 1.
+bool uplink_grid(int rows, int n, int tile, dim3* grid) {
+  const int64_t blocks = static_cast<int64_t>(rows) * ((n + tile - 1) / tile);
+  if (rows <= 0 || blocks > INT32_MAX) return false;
+  *grid = dim3(static_cast<unsigned>(blocks));
+  return true;
 }
 
 }  // namespace
@@ -1026,7 +1076,8 @@ int merge_stacked_launch(const float* z, const float* w, const float* recv,
 // The uplink launchers: w, ef and alive may be null (no weight / no
 // residual / every worker alive), and so may ef_out (no residual written).
 // vec = 1 takes the float4 path: n and tile multiples of 4, pointers
-// 16-byte aligned (the uint8 mask 4-byte aligned).
+// 16-byte aligned (the uint8 mask 4-byte aligned). Any number of rows, up
+// to 2^31 - 1 blocks of (row, tile); more is refused here.
 
 // part is (rows, ceil(n / tile)) scratch, tickets (rows,) arrival counters
 // at 0 (left at 0), out (rows,); tile best a multiple of kStatsStep.
@@ -1034,7 +1085,10 @@ int uplink_stats_launch(const float* z, const float* w, const float* ef,
                         float* part, unsigned* tickets, float* out, int rows,
                         int n, int tile, int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = uplink_grid(rows, n, tile);
+  dim3 grid;
+  if (!uplink_grid(rows, n, tile, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (vec) {
     stats_kernel<4><<<grid, kUpThreads, 0, s>>>(z, w, ef, part, tickets, out,
                                                 n, tile);
@@ -1052,7 +1106,10 @@ int quantize_uplink_launch(const float* z, const float* w, const float* ef,
                            int rows, int n, int tile, int vec, float levels,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = uplink_grid(rows, n, tile);
+  dim3 grid;
+  if (!uplink_grid(rows, n, tile, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (vec) {
     quantize_kernel<4><<<grid, kUpThreads, 0, s>>>(
         z, w, ef, scale, alive, keys, sent, ef_out, n, tile, levels);
@@ -1067,7 +1124,10 @@ int eff_uplink_launch(const float* z, const float* w, const float* ef,
                       float* out, int rows, int n, int tile, int vec,
                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = uplink_grid(rows, n, tile);
+  dim3 grid;
+  if (!uplink_grid(rows, n, tile, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (vec) {
     eff_kernel<4><<<grid, kUpThreads, 0, s>>>(z, w, ef, out, n, tile);
   } else {
@@ -1081,7 +1141,10 @@ int mask_uplink_launch(const float* eff, const uint8_t* mask, const float* ef,
                        const float* alive, float* sent, float* ef_out,
                        int rows, int n, int tile, int vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = uplink_grid(rows, n, tile);
+  dim3 grid;
+  if (!uplink_grid(rows, n, tile, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (vec) {
     mask_kernel<4><<<grid, kUpThreads, 0, s>>>(eff, mask, ef, alive, sent,
                                                 ef_out, n, tile);

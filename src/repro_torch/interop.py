@@ -135,6 +135,55 @@ def params_to_numpy(leaves, cfg: ArchConfig) -> dict:
         iter(np.asarray(v.detach().cpu()) for v in leaves))
 
 
+def wgan_params_from_numpy(tree, *, device="cuda") -> tuple:
+    """A JAX WGAN iterate ``(gen, disc)`` (each a list of ``{"b", "w"}``
+    layers of numpy arrays, with or without leading worker axes) as the
+    port's 12 leaves in ``jax.tree.leaves`` order (per network and layer
+    ``b`` before ``w``), float32.
+
+    >>> gen = [{"w": np.ones((8, 4)), "b": np.zeros(4)}] * 3
+    >>> leaves = wgan_params_from_numpy((gen, gen), device="cpu")
+    >>> len(leaves), tuple(leaves[0].shape), tuple(leaves[1].shape)
+    (12, (4,), (8, 4))
+    """
+    dev = resolve_device(device)
+    nets = tuple(tree)
+    if len(nets) != 2:
+        raise ValueError("a WGAN iterate is the pair (gen, disc)")
+    out = []
+    for net in nets:
+        for layer in net:
+            if sorted(layer) != ["b", "w"]:
+                raise ValueError(f"a WGAN layer has the keys b and w, got "
+                                 f"{sorted(layer)}")
+            b = np.array(layer["b"], dtype=np.float32)
+            w = np.array(layer["w"], dtype=np.float32)
+            if w.ndim != b.ndim + 1 or w.shape[-1] != b.shape[-1]:
+                raise ValueError(f"layer b {b.shape} does not match w "
+                                 f"{w.shape}")
+            out += [torch.as_tensor(b, device=dev),
+                    torch.as_tensor(w, device=dev)]
+    return tuple(out)
+
+
+def wgan_params_to_numpy(leaves) -> tuple:
+    """The inverse of :func:`wgan_params_from_numpy`: ``(gen, disc)``, each
+    a list of ``{"b", "w"}`` layers of numpy arrays.
+
+    >>> t = torch.zeros
+    >>> gen, disc = wgan_params_to_numpy([t(4), t(8, 4)] * 6)
+    >>> len(gen), sorted(disc[2]), disc[2]["w"].shape
+    (3, ['b', 'w'], (8, 4))
+    """
+    leaves = [np.asarray(v.detach().cpu()) for v in leaves]
+    if len(leaves) % 4 != 0:
+        raise ValueError(f"{len(leaves)} leaves do not make two networks of "
+                         "(b, w) layers")
+    layers = [{"b": b, "w": w} for b, w in zip(leaves[::2], leaves[1::2])]
+    half = len(layers) // 2
+    return layers[:half], layers[half:]
+
+
 def _template_dict(cfg: ArchConfig):
     from .models.transformer import param_template
 

@@ -188,16 +188,19 @@ def aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
-def layout(name: str, z: torch.Tensor, *others, max_rows: int = 65535):
+def layout(name: str, z: torch.Tensor, *others,
+           max_rows: int | None = 65535):
     """Check the worker-stacked ``(M, n)`` float32 CUDA operands (None
     entries skipped); returns ``(M, n, vec)``, ``vec`` 1 when the float4
-    path applies (n a multiple of 4, every operand 16-byte aligned)."""
+    path applies (n a multiple of 4, every operand 16-byte aligned).
+    ``max_rows`` is the kernel's row limit: 65535 where the rows are a grid
+    dimension of their own (``gridDim.y``), None where they are not."""
     check_cuda_f32(name, z, *others)
     rows, n = z.shape
     for t in others:
         if t is not None and t.shape != (rows, n):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {(rows, n)}")
-    if n == 0 or not 0 < rows <= max_rows:
+    if n == 0 or rows == 0 or (max_rows is not None and rows > max_rows):
         raise ValueError(f"{name}: unsupported shape {(rows, n)}")
     return rows, n, int(n % 4 == 0 and aligned16(z, *others))
 

@@ -58,7 +58,9 @@ OUTER = _build.Kernel("outer_apply", _SRC, "outer_apply_launch",
 #: shared memory a block can take on an H100 (the opt-in carve-out)
 SHARED_BYTES = 232448
 #: the merge kernel keeps the M weights in shared memory, beside the row
-#: slices' 4 KB of partial sums
+#: slices' 4 KB of partial sums, up to this many rows; a larger fleet's
+#: weights are read from global memory (the read-only path), with the same
+#: bits
 MAX_ROWS = (SHARED_BYTES - 4 * 256 * 4) // 4
 #: columns of one worker's row per block of the quantize, eff and mask passes
 TILE = 2048
@@ -76,7 +78,8 @@ TRIMMED_STAGED, TRIMMED_STREAMED = 0, 1
 OUTER_STEP = 256 * 8
 OUTER_BLOCKS_PER_SM = 4
 _OUTER_KINDS = {"momentum": 0, "nesterov": 1, "adam": 2}
-#: the scale pass keeps one ticket a row: as many as a leaf may have rows
+#: the scale pass keeps one ticket a row; the buffer is made with this many
+#: and grows with a larger fleet (:func:`tickets`)
 STATS_TICKETS = 65535
 
 _TICKETS: dict = {}
@@ -87,14 +90,15 @@ def _ptr(t):
 
 
 def tickets(name: str, count: int, device) -> torch.Tensor:
-    """The ``count`` int32 arrival counters of kernel ``name`` on
-    ``device``, made once at 0. A kernel whose last block finishes a
-    reduction counts its blocks in on them, and that block resets them to
-    0, so the next launch, or a CUDA graph's replay, finds them at 0.
-    Launches that share them run in order, on one stream."""
+    """At least ``count`` int32 arrival counters of kernel ``name`` on
+    ``device``, made at 0: the same buffer on every call, replaced by a
+    larger one at 0 when a call asks for more. A kernel whose last block
+    finishes a reduction counts its blocks in on them, and that block
+    resets them to 0, so the next launch, or a CUDA graph's replay, finds
+    them at 0. Launches that share them run in order, on one stream."""
     key = (name, torch.device(device))
     buf = _TICKETS.get(key)
-    if buf is None:
+    if buf is None or buf.numel() < count:
         if (torch.cuda.is_available()
                 and torch.cuda.is_current_stream_capturing()):
             raise RuntimeError(f"{name}: call it once before capturing a "
@@ -145,7 +149,7 @@ def merge_stacked(z, w=None, recv=None, old=None, *, normalize=False):
         old = None
     elif old is None:
         old = z
-    rows, n, vec = _build.layout("merge_stacked", z, old, max_rows=MAX_ROWS)
+    rows, n, vec = _build.layout("merge_stacked", z, old, max_rows=None)
     wf = _build.per_worker_f32("merge_stacked", w, rows, z)
     rf = _build.per_worker_f32("merge_stacked", recv, rows, z)
     out = torch.empty_like(z)
@@ -170,14 +174,14 @@ def uplink_stats(z, w=None, ef=None):
     effective message (the caller applies the 1e-30 clamp)."""
     if _build.on_cpu(z):
         return uplink_stats_ref(z, ef, w)
-    rows, n, vec = _build.layout("uplink_stats", z, ef)
+    rows, n, vec = _build.layout("uplink_stats", z, ef, max_rows=None)
     wf = _build.per_worker_f32("uplink_stats", w, rows, z)
     tile = stats_tile(rows, n, _build.sm_count(z.device))
     part = torch.empty(rows * -(-n // tile), dtype=torch.float32,
                        device=z.device)
     out = torch.empty(rows, dtype=torch.float32, device=z.device)
-    STATS(z.data_ptr(), _ptr(wf), _ptr(ef), part.data_ptr(),
-          tickets("uplink_stats", STATS_TICKETS, z.device).data_ptr(),
+    ticket = tickets("uplink_stats", max(rows, STATS_TICKETS), z.device)
+    STATS(z.data_ptr(), _ptr(wf), _ptr(ef), part.data_ptr(), ticket.data_ptr(),
           out.data_ptr(), rows, n, tile, vec, _build.stream_of(z))
     return out
 
@@ -193,7 +197,7 @@ def quantize_uplink(z, keys, scale, w=None, ef=None, alive=None, *,
         sent, ef_new = quantize_uplink_ref(z, keys, scale, levels=levels,
                                            ef=ef, w=w, alive=alive)
         return sent, None if ef is None else ef_new
-    rows, n, vec = _build.layout("quantize_uplink", z, ef)
+    rows, n, vec = _build.layout("quantize_uplink", z, ef, max_rows=None)
     wf = _build.per_worker_f32("quantize_uplink", w, rows, z)
     sc = _build.per_worker_f32("quantize_uplink", scale, rows, z)
     af = _build.per_worker_f32("quantize_uplink", alive, rows, z)
@@ -210,7 +214,7 @@ def eff_uplink(z, w=None, ef=None):
     """The effective message ``w·z + ef`` ``(M, n)``, rounded once."""
     if _build.on_cpu(z):
         return eff_uplink_ref(z, ef, w)
-    rows, n, vec = _build.layout("eff_uplink", z, ef)
+    rows, n, vec = _build.layout("eff_uplink", z, ef, max_rows=None)
     wf = _build.per_worker_f32("eff_uplink", w, rows, z)
     out = torch.empty_like(z)
     EFF(z.data_ptr(), _ptr(wf), _ptr(ef), out.data_ptr(), rows, n, TILE, vec,
@@ -226,7 +230,7 @@ def mask_uplink(eff, mask, ef=None, alive=None):
     if _build.on_cpu(eff):
         sent, ef_new = mask_uplink_ref(eff, mask, alive=alive, ef=ef)
         return sent, None if ef is None else ef_new
-    rows, n, vec = _build.layout("mask_uplink", eff, ef)
+    rows, n, vec = _build.layout("mask_uplink", eff, ef, max_rows=None)
     if mask.dtype == torch.bool:
         mask = mask.view(torch.uint8)
     if (mask.dtype != torch.uint8 or mask.shape != (rows, n)
@@ -256,7 +260,8 @@ def trimmed_merge_stacked(z, w, incl, recv=None, old=None, *, trim: int):
         old = None
     elif old is None:
         old = z
-    rows, n, _ = _build.layout("trimmed_merge_stacked", z, old)
+    rows, n, _ = _build.layout("trimmed_merge_stacked", z, old,
+                               max_rows=None)
     wf = _build.per_worker_f32("trimmed_merge_stacked", w, rows, z)
     inf = _build.per_worker_f32("trimmed_merge_stacked", incl, rows, z)
     rf = _build.per_worker_f32("trimmed_merge_stacked", recv, rows, z)

@@ -301,3 +301,35 @@ def server_outer_apply(merged, z, mom, t, *, spec, use_kernel=True):
                             device=t.device)
     return (tuple(z_new), tuple(tuple(v) for v in mom_new), t_new, eff_lr,
             _ref.sqrt_f32(dsq))
+
+
+# ---------------------------------------------------------------------------
+# HBM-traffic model: passes over the fleet's (M, n) payload per uplink, a
+# read or a write of one (M, n) array counting as one pass.
+# ---------------------------------------------------------------------------
+
+#: passes per sync uplink: {codec: (reference, fused)}. The reference
+#: column is the JAX package's model of its tree pipeline (message scale,
+#: EF add, scale/select reduction, quantize/scatter, residual, each a sweep).
+#: The fused column counts the port's kernels (``csrc/sync_compress.cu``):
+#: identity, the merge (B5) reads the payload and writes the broadcast (2);
+#: quantize, the scale pass (B6) reads z and ef, the quantize pass (B7)
+#: reads z and ef and writes sent and ef (6); top-k, the eff pass (B8)
+#: reads z and ef and writes eff, the mask pass (B9) reads eff and the
+#: mask and writes sent and ef (7). The top-k selection between them (a
+#: stable sort in plain PyTorch) is not a kernel and is not counted; the
+#: JAX model's fused 8 counts its read of eff (ROADMAP C19).
+CODEC_PASS_MODEL = {
+    "identity": (4, 2),
+    "quantize": (11, 6),
+    "topk": (10, 7),
+}
+
+
+def codec_passes(codec) -> tuple[int, int]:
+    """(reference, fused) HBM passes per uplink for a codec spec.
+
+    >>> codec_passes(("quantize", 8)), codec_passes(("topk", 0.25))
+    ((11, 6), (10, 7))
+    """
+    return CODEC_PASS_MODEL[_check_codec(codec)[0]]

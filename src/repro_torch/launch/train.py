@@ -99,7 +99,9 @@ def make_ps_engine(
     :class:`~repro_torch.ps.PSEngine` with ``codec_backend`` for the sync.
     ``eval_fn="loss"`` installs :func:`~repro_torch.models.make_eval_loss`
     on a held-out batch; pass None or a callable to override.
-    ``trace_meta`` is merged into the trace's metadata."""
+    ``trace_meta`` is merged into the trace's metadata; ``tracer`` and
+    ``metrics`` (a :class:`~repro_torch.obs.MetricsRegistry`) go to the
+    engine."""
     from ..models.problem import make_eval_loss, make_lm_problem
     from ..models.worker import ModelWorker
     from ..ps import PSConfig, PSEngine
@@ -111,9 +113,6 @@ def make_ps_engine(
         raise NotImplementedError(
             "the async engine (latency=, staleness_bound=) is ported with "
             "ROADMAP A12")
-    if metrics is not None:
-        raise NotImplementedError(
-            "engine metrics are ported with observability (ROADMAP A16)")
     dev = resolve_device(device)
     m = plan.workers_override
     if not m:
@@ -129,7 +128,7 @@ def make_ps_engine(
                       compressor=compressor, faults=faults,
                       codec_backend=codec_backend)
     engine = PSEngine(problem, config, rng, eval_fn=eval_fn, tracer=tracer,
-                      device=dev)
+                      metrics=metrics, device=dev)
     if trace_meta:
         engine.trace.meta.update(trace_meta)
     return engine

@@ -26,7 +26,9 @@ from .faults import BernoulliFaults, FaultPolicy, NoFaults, OutageFaults
 from .partition import (
     heterogeneous_bilinear,
     heterogeneous_robust,
+    heterogeneous_wgan,
     heterogenize,
+    mixture_sampler,
 )
 from .robust import (
     ByzantinePolicy,
@@ -100,9 +102,11 @@ __all__ = [
     "dense_bytes",
     "heterogeneous_bilinear",
     "heterogeneous_robust",
+    "heterogeneous_wgan",
     "heterogenize",
     "make_serial_chunk",
     "make_sync_stacked",
+    "mixture_sampler",
     "resolve_robust",
     "resolve_server_opt",
 ]

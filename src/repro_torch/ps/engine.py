@@ -25,6 +25,13 @@ per step, ``split(fold_in(rng_round, 7), M)`` for the codec, and those
 keys folded with 13 and 11 for the attacks and the DP noise), so its
 trajectories can be held against the JAX engine's.
 
+Each round is recorded three ways on the host: a
+:class:`~repro_torch.ps.trace.RoundRecord` in the trace, a ``round`` span
+(:mod:`repro_torch.obs.spans`), and the JAX engine's metric records
+(:mod:`repro_torch.obs.metrics`: traffic, steps, η spread, the hostile
+fleet's and the outer step's gauges, and the round's wall time beside the
+uplink's modeled HBM time).
+
 Checkpoints (:meth:`PSEngine.save`, :meth:`PSEngine.restore`) carry the
 fleet state, the error-feedback residuals, the round counter, the seed
 and the fingerprints, plus the outer optimizer's state when one is active,
@@ -48,7 +55,7 @@ from ..core.tree import per_worker, tree_map, tree_zeros_like
 from ..core.types import MinimaxProblem
 from ..core.worker import AdaSEGWorker, LocalWorker
 from ..kernels.sync_compress.ref import effective_message
-from ..obs import SpanTracer
+from ..obs import MetricsRegistry, SpanTracer, modeled_sync_cost
 from .compress import (
     IdentityCompressor,
     SyncCompressor,
@@ -498,6 +505,7 @@ class PSEngine:
         mesh=None,
         eval_fn: Callable | None = None,
         tracer: SpanTracer | None = None,
+        metrics: MetricsRegistry | None = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -506,7 +514,11 @@ class PSEngine:
                 "the sharded path (mesh=) is ported in a later slice")
         self.problem = problem
         self.config = config
+        # Spans and metrics are recorded on the host from values already
+        # copied there, so the default-enabled tracer and registry cannot
+        # change a result (tests/test_torch_obs.py runs them on and off).
         self.tracer = tracer if tracer is not None else SpanTracer()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.worker = _resolve_worker(config)
         self.schedule = _resolve_schedule(config)
         self.compressor = config.compressor or IdentityCompressor()
@@ -626,8 +638,12 @@ class PSEngine:
         self._state, self._ef, self._srv = state, ef, srv
         self.round = r1
 
-        # The chunk's wall-clock, attributed uniformly across its rounds.
+        # The chunk's wall-clock, attributed uniformly across its rounds,
+        # beside the traffic model's cost of the uplink.
         per_round_wall = chunk_sp.wall_dur / max(r1 - r0, 1)
+        cost = modeled_sync_cost(
+            self.compressor.codec_spec, self._dense_bytes,
+            workers=self.config.num_workers, backend=self.codec_backend)
         for i, r in enumerate(range(r0, r1)):
             alive = self._alive[r]
             steps_row = self._eff_steps[r]
@@ -660,6 +676,31 @@ class PSEngine:
                     wall_t1=chunk_sp.wall_t0 + (i + 1) * per_round_wall,
                     **vars(rec),
                 )
+            self._emit_round(rec, eff, len(alive), per_round_wall, cost)
+
+    def _emit_round(self, rec: RoundRecord, eff: int, lanes: int,
+                    wall: float, cost: dict) -> None:
+        """One round's metrics, as the JAX package's sync engine emits
+        them: traffic, local steps, η spread, the outer step's ‖Δ‖ and the
+        hostile fleet's gauges where those layers are on, and the measured
+        round wall beside the modeled uplink cost."""
+        m = self.metrics
+        m.inc("bytes_up", rec.bytes_up, engine="sync")
+        m.inc("bytes_down", rec.bytes_down, engine="sync")
+        m.inc("local_steps", eff, engine="sync")
+        m.set_gauge("eta_spread", rec.eta_spread, engine="sync")
+        if self._server is not None:
+            m.set_gauge("outer_delta_norm", rec.delta_norm, engine="sync",
+                        server_opt=self.server_opt.name)
+        if self._robust is not None:
+            m.inc("byzantine_workers", len(rec.byzantine_workers or []),
+                  engine="sync")
+            m.set_gauge("agg_reject_frac", self.aggregator.reject_frac(lanes),
+                        engine="sync", aggregator=self.aggregator.name)
+        m.observe("round_wall_s", wall, engine="sync",
+                  codec=self.compressor.name, backend=self.codec_backend,
+                  modeled_hbm_passes=cost["hbm_passes"],
+                  modeled_hbm_s=cost["hbm_s"])
 
     def run(self, *, until_round: int | None = None,
             checkpoint_path: str | None = None,
@@ -733,6 +774,8 @@ class PSEngine:
         with self.tracer.span(f"checkpoint r{self.round}", cat="checkpoint",
                               round=self.round) as sp:
             sp.attrs["bytes"] = save_pytree(path, self._ckpt_tree())
+            self.metrics.inc("checkpoint_bytes", sp.attrs["bytes"],
+                             engine="sync")
 
     def restore(self, path: str) -> "PSEngine":
         """Resume mid-run: policies and key streams are re-derived from the

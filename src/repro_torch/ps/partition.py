@@ -11,12 +11,12 @@ concentration ``alpha``, carves those distributions:
   so the global mean problem is the paper's §4.1 game unchanged;
 * **robust-logistic** — the n examples fall into quantile bins of a random
   feature projection, and worker m draws minibatch indices with
-  probability ∝ its Dirichlet mass on the example's group.
+  probability ∝ its Dirichlet mass on the example's group;
+* **WGAN** — worker m's real data draws the mixture's modes with
+  probabilities given by its Dirichlet row (Fig. E2's non-iid GAN).
 
 The samplers take keys with any leading axes and worker ids of the same
 leading shape (one draw per key), so ``optim.minibatch`` applies to them.
-The §5 WGAN and its ``heterogeneous_wgan`` are ported with the WGAN (ROADMAP
-A11); until then :func:`heterogenize` refuses a WGAN problem.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from ..data.synthetic import (
 )
 from ..problems.bilinear import BilinearGame
 from ..problems.robust import RobustLogistic
+from ..problems.wgan import WGANProblem, mode_centers
 
 
 def heterogeneous_bilinear(
@@ -126,11 +127,68 @@ def heterogeneous_robust(
     )
 
 
+def mixture_sampler(wg: WGANProblem, mode_logits: torch.Tensor,
+                    modes: int = 8, radius: float = 2.0, std: float = 0.05):
+    """The heterogeneous WGAN's ``sample_worker(rngs, worker_ids)`` for
+    per-worker mode logits ``(M, modes)``: each key splits into
+    ``(r_mode, r_noise, r_z, r_eps)``; the modes are a categorical draw
+    under the worker's logits (``random.categorical``), the real data their
+    centres plus ``std`` times a normal, the latents and the interpolation
+    weights as :func:`~repro_torch.problems.make_wgan_problem` draws them."""
+
+    def sample_worker(rngs, worker_ids):
+        k = jr.split(rngs, 4)
+        logits = mode_logits[worker_ids.long()].unsqueeze(-2)
+        kk = jr.categorical(k[..., 0, :], logits, (wg.batch,))
+        real = (mode_centers(kk, modes, radius)
+                + std * jr.normal(k[..., 1, :], (wg.batch, 2)))
+        return {
+            "real": real,
+            "z": jr.normal(k[..., 2, :], (wg.batch, wg.latent_dim)),
+            "eps": jr.uniform(k[..., 3, :], (wg.batch, 1)),
+        }
+
+    return sample_worker
+
+
+def heterogeneous_wgan(
+    wg: WGANProblem,
+    num_workers: int,
+    rng: torch.Tensor,
+    alpha: float = 0.6,
+    modes: int = 8,
+    radius: float = 2.0,
+    std: float = 0.05,
+) -> MinimaxProblem:
+    """Per-worker real-data distribution over the mixture modes, reweighted
+    by a Dirichlet row: ``log(p_m + 1e-8)`` as worker m's mode logits
+    (:func:`mixture_sampler`).
+
+    Examples
+    --------
+    >>> from repro_torch.problems import make_wgan_problem
+    >>> wg = make_wgan_problem(jr.PRNGKey(0, device="cpu"), latent_dim=2,
+    ...                        hidden=4, batch=4)
+    >>> prob = heterogeneous_wgan(wg, 2, jr.PRNGKey(1, device="cpu"),
+    ...                           alpha=0.6)
+    >>> xi = prob.sample_worker(jr.split(jr.PRNGKey(2, device="cpu"), 2),
+    ...                         torch.tensor([0, 1]))
+    >>> sorted(xi), tuple(xi["real"].shape)
+    (['eps', 'real', 'z'], (2, 4, 2))
+    """
+    props = dirichlet_proportions(rng, num_workers, modes, alpha)
+    mode_logits = torch.log(props + 1e-8)                          # (M, modes)
+    return dataclasses.replace(
+        wg.problem,
+        sample_worker=mixture_sampler(wg, mode_logits, modes, radius, std),
+        name=wg.problem.name + "@hetero",
+    )
+
+
 def heterogenize(obj, num_workers: int, rng, alpha: float = 0.5,
                  **kwargs) -> MinimaxProblem:
-    """Dispatch on the problem wrapper: BilinearGame or RobustLogistic →
-    the matching Dirichlet-skewed per-worker problem. A WGAN problem waits
-    for the port's WGAN (ROADMAP A11).
+    """Dispatch on the problem wrapper: BilinearGame, RobustLogistic or
+    WGANProblem → the matching Dirichlet-skewed per-worker problem.
 
     Examples
     --------
@@ -148,8 +206,6 @@ def heterogenize(obj, num_workers: int, rng, alpha: float = 0.5,
         return heterogeneous_bilinear(obj, num_workers, rng, alpha, **kwargs)
     if isinstance(obj, RobustLogistic):
         return heterogeneous_robust(obj, num_workers, rng, alpha, **kwargs)
-    if "wgan" in type(obj).__name__.lower():
-        raise NotImplementedError(
-            "heterogeneous_wgan is ported with the WGAN problem (ROADMAP "
-            "A11)")
+    if isinstance(obj, WGANProblem):
+        return heterogeneous_wgan(obj, num_workers, rng, alpha, **kwargs)
     raise TypeError(f"no heterogeneous partition for {type(obj).__name__}")

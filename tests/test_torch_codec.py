@@ -261,6 +261,16 @@ def test_tickets_are_made_once_at_zero():
     assert tk.tickets("outer_apply", 1, "cpu") is not a
 
 
+def test_tickets_grow_with_the_fleet():
+    """A fleet of more rows than the buffer holds gets a larger one at 0
+    (the scale pass keeps a ticket a row); a smaller ask keeps it."""
+    small = tk.tickets("grow_check", 10, "cpu")
+    big = tk.tickets("grow_check", 70000, "cpu")
+    assert small.shape == (10,) and big.shape == (70000,)
+    assert not bool(big.any()) and big.dtype == torch.int32
+    assert tk.tickets("grow_check", 12, "cpu") is big
+
+
 def test_wrappers_refuse_other_devices():
     z = torch.empty(2, 8, device="meta")
     keys = torch.zeros(2, 2, dtype=torch.int64, device="meta")

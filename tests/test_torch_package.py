@@ -45,8 +45,10 @@ def test_no_jax_and_no_reference_package_imports(path):
                                                                   name)
 
 
-def test_chip_smoke_imports_no_jax():
-    names = set(_imports(REPO / "chip_smoke.py"))
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "examples/torch_wgan_train.py"])
+def test_chip_smoke_imports_no_jax(script):
+    names = set(_imports(REPO / script))
     assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
                    for n in names), names
 
@@ -65,6 +67,8 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.data, repro_torch.models, repro_torch.launch, "
             "repro_torch.optim, repro_torch.ps.partition, "
             "repro_torch.problems.quadratic, repro_torch.problems.robust, "
+            "repro_torch.problems.wgan, repro_torch.obs.metrics, "
+            "repro_torch.obs.export, repro_torch.hardware, "
             "repro_torch.core.metrics; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -171,6 +175,8 @@ DOCTEST_MODULES = [
     "repro_torch.core.metrics", "repro_torch.problems.quadratic",
     "repro_torch.problems.robust", "repro_torch.optim.base",
     "repro_torch.optim.methods", "repro_torch.ps.partition",
+    "repro_torch.problems.wgan", "repro_torch.obs.metrics",
+    "repro_torch.obs.export", "repro_torch.hardware",
 ]
 
 

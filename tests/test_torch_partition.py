@@ -32,7 +32,11 @@ from repro_torch.data.synthetic import (
     group_sampling_logits,
     quantile_groups,
 )
-from repro_torch.problems import game_from_arrays, robust_logistic_from_arrays
+from repro_torch.problems import (
+    game_from_arrays,
+    make_wgan_problem,
+    robust_logistic_from_arrays,
+)
 
 M = 8
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -142,10 +146,16 @@ def test_heterogenize_dispatch_and_refusals(games):
                                         "object"):
         tps.heterogenize(object(), 2, key)
 
-    class WGANProblem:        # what the JAX package's WGAN wrapper is called
+    # the WGAN, ported since, dispatches to heterogeneous_wgan; a look-alike
+    # of the JAX package's wrapper's name is no WGAN problem
+    wg = make_wgan_problem(key, latent_dim=2, hidden=4, batch=4)
+    assert tps.heterogenize(wg, 2, key).name == "wgan_gp@hetero"
+
+    class WGANProblem:
         pass
 
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="no heterogeneous partition for "
+                                        "WGANProblem"):
         tps.heterogenize(WGANProblem(), 2, key)
 
 

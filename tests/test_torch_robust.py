@@ -280,12 +280,11 @@ def test_sync_merge_stacked_trimmed_past_the_staged_rows_matches_jax(
     (1, tk.TRIMMED_STAGED), (64, tk.TRIMMED_STAGED),
     (1350, tk.TRIMMED_STAGED), (1351, tk.TRIMMED_STREAMED),
     (2048, tk.TRIMMED_STREAMED), (10000, tk.TRIMMED_STREAMED),
-    (65535, tk.TRIMMED_STREAMED)])
+    (65535, tk.TRIMMED_STREAMED), (70000, tk.TRIMMED_STREAMED)])
 def test_trimmed_merge_path_choice(rows, path):
     """The staged path while its slice fits the opt-in shared memory (1350
     rows: the (M, 32) column, w, incl, recv, a keep byte a row and column,
-    33 scalars), the streamed path past it, with no row limit below the
-    layout's 65535."""
+    33 scalars), the streamed path past it, with no row limit."""
     def staged_bytes(m):
         return m * (4 * (32 + 3) + 32) + 4 * (32 + 1)
 

@@ -118,7 +118,8 @@ def test_merge_past_12288_rows_matches_jax(normalize):
 
 def test_merge_weights_fit_the_opt_in_shared_memory():
     """The card's merge keeps the M weights beside 4 KB of slice partials in
-    the opt-in shared memory: 57088 rows, past the layout's 65535 refused."""
+    the opt-in shared memory up to 57088 rows; a larger fleet's weights are
+    read from global memory."""
     def smem(rows):
         return 4 * 256 * 4 + 4 * rows
 
