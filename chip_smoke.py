@@ -6,6 +6,8 @@
     python3 chip_smoke.py --zoo             # only the zoo phase (no result)
     python3 chip_smoke.py --fleet-rows      # only fleet_rows (no result)
     python3 chip_smoke.py --wgan            # only the wgan phase (no result)
+    python3 chip_smoke.py --async           # only the async phase (no result)
+    python3 chip_smoke.py --kernels         # only B1-B5's kernel lines
     python3 chip_smoke.py --sync-bits OUT   # the sync wrappers' outputs
     python3 chip_smoke.py --compare-bits A B  # two such files, to the bit
 
@@ -35,17 +37,23 @@ nothing of JAX. Phases, one JSON line each:
    CUDA graph (``wrapper_graph_ms``); and into the kernel's own
    preallocated outputs (``library_same_out_ms``) against the bare launch
    into them (``ms``). A ``fresh_outputs`` line says whether the fresh
-   outputs inside each capture share one block. ``merge_shapes`` holds the
+   outputs inside each capture share one block (``--kernels`` runs only
+   this phase, whose launchers a parent tree shares, so two trees' B1-B5
+   can be timed in one call). ``merge_shapes`` holds the
    merge at M in {1, 4, 63, 64} x n in {16384, 16421}, unit weights,
    normalised and gated, reruns bit-identical; ``merge_fleet`` at M = 16384
    (its weights in the opt-in shared memory); ``merge_lm_leaf`` times it
    and the matmul at the lm path's largest leaf, (4, 151936 x 896).
-   ``fleet_rows`` holds the sync kernels B5-B10 at a fleet of 70000
-   workers, n = 4096 (past the 65535 rows a grid's y dimension takes): the
-   uplink kernels exactly, with a dead row past 65535; B5 (its weights
-   read from global memory past the opt-in shared memory) and B10's
-   streamed path (its plain version on 64 of the columns) at 1e-5, each
-   rerun bit-identical; every launch timed. The
+   ``fleet_rows`` holds the update kernels B1-B4 and the sync kernels
+   B5-B10 at a fleet of 70000 workers, n = 4096 (past the 65535 rows a
+   grid's y dimension takes): B1 and B2 within 1.49e-7, B3 exactly, B4
+   bit-identical to B1 then B2; the uplink kernels exactly, with a dead
+   row past 65535; B5 (its weights read from global memory past the
+   opt-in shared memory) and B10's streamed path (its plain version on 64
+   of the columns) at 1e-5, each rerun bit-identical; every launch timed.
+   ``--sync-bits`` saves B1-B10's outputs on fixed inputs (B1-B4 at (64,
+   16384), (64, 16421) and (4, 16421)), so two trees' kernels can be held
+   to the bit with ``--compare-bits``. The
    scale pass (B6) is also held and timed at that leaf (a ``kernel`` line
    with its ``shape``). Beside B6 and the outer step (B11), whose small
    shapes take little more than a launch, ``launch_floor_ms`` is the time
@@ -94,7 +102,22 @@ nothing of JAX. Phases, one JSON line each:
    trimmed, median and stack cells' final residuals in hex, to compare two
    trees to the bit. Then a fused trimmed+Nesterov
    run is checkpointed at round 2, restored into a new engine and run on,
-   and must equal the uninterrupted run bit for bit;
+   and must equal the uninterrupted run bit for bit; then ``async``: the
+   event-driven engine (``AsyncPSEngine``) on the same game and fleet with
+   ``benchmarks/bench_async.py``'s one 6x straggler (63 workers at 1 s a
+   local step, one at 6 s, uplink 0.2 s, downlink 0.1 s), R=5: tau=0 fused
+   (every admission the whole fleet, through the sync engine's round
+   chunk), bit-identical to ``PSEngine``; tau=2 fused and reference, whose
+   residual traces agree within rtol 1e-4 and host records exactly, with a
+   fused rerun, a run killed at admission 4, saved, restored and finished,
+   and a run with spans and metrics off, each bit-identical; tau=inf
+   fused; the simulated time, time-to-target against tau=0's final
+   residual (reported, not gated), idle fraction, largest staleness,
+   admissions, wall s per admission, ms per phase batch and launches;
+   then at tau=2, R=3, q8 with error feedback, a 20% sign-flip attack
+   under a trimmed mean, and outer Nesterov, each launching its kernels
+   (B1, B2 on every phase step; B5 at tau=0; B6, B7; B10; B11);
+   ``python3 chip_smoke.py --async`` runs only this phase;
 8. zoo — the paper's Fig. 4 comparison on the same game (``zoo_setup``:
    ‖A‖₂ by 30 power iterations; SGDA and SEGDA take lr = 1/(2‖A‖₂), Adam
    0.02, UMP and ASMP G₀ = n, D = √(2n)): LocalAdaSEG and the five zoo
@@ -111,8 +134,9 @@ nothing of JAX. Phases, one JSON line each:
    rerun of UMP that must repeat to the bit (``zoo_rerun``); then ``wgan``,
    the paper's §5 comparison: WGAN-GP at its full default width (hidden
    64, batch 64) as a ``ModelWorker`` on ``PSEngine`` with M=64, K=20,
-   R=40, homogeneous and ``heterogeneous_wgan`` (alpha 0.6), fused,
-   reference and fused under q8, beside ``benchmarks/bench_wgan.py``'s
+   R=20 (bench_wgan.py runs 40), homogeneous and ``heterogeneous_wgan``
+   (alpha 0.6), fused, reference and fused under q8, beside
+   ``benchmarks/bench_wgan.py``'s
    baselines MB-UMP and MB-ASMP (``run_serial`` on a minibatch of M) and
    LocalAdam (lr 2e-3, ``PSEngine``): W-estimates and moment distances
    every 10 rounds and ms per local step, every value finite, B1, B2 and
@@ -314,12 +338,31 @@ MAMBA_ARCH = "mamba2-370m"
 FLEET_ROWS = (70000, 4096)
 FLEET_TRIM_COLS = 64
 FLEET_DEAD_ROW = 69999
+# B1/B2 against their plain versions at the fleet: the largest elementwise
+# error PERF.md states for them at (64, 16384) and the merge shapes (the
+# kernels round z* - eta*g once, by an FMA, where the plain version rounds
+# twice); B3 exactly, B4 bit-identical to B1 then B2.
+TOL_FLEET_UPDATE = 1.49e-7
+# --sync-bits: the update kernels' outputs at these (M, n), to hold two
+# trees' B1-B4 to the bit.
+UPDATE_BITS_SHAPES = ((M, N), (M, N_RAGGED), (4, N_RAGGED))
+# The async phase: benchmarks/bench_async.py:50's one 6x straggler at the
+# main fleet (M - 1 workers at 1 s a local step, one at 6 s; uplink 0.2 s,
+# downlink 0.1 s) on the main game, tau in {0, 2, inf}, gamma = 1, R; a run
+# killed at admission ASYNC_KILL, saved and resumed; and three cells at
+# tau = 2 and ASYNC_CELL_R rounds under q8, an attack and outer Nesterov.
+ASYNC_LATENCY = dict(step_s=(1.0,) * (M - 1) + (6.0,), up_s=0.2, down_s=0.1)
+ASYNC_TAUS = {"tau0": 0.0, "tau2": 2.0, "tauinf": math.inf}
+ASYNC_KILL = 4
+ASYNC_CELL_R = 3
 # The wgan phase: the paper's §5 WGAN-GP (src/repro/problems/wgan.py) at
 # make_wgan_problem's full default width (latent 8, hidden 64, batch 64,
 # gp 1), seed 0, with examples/wgan_train.py's and benchmarks/bench_wgan.py's
-# AdaSEG settings; the fleet M = 64, K = 20, R = 40, homogeneous and
+# AdaSEG settings; the fleet M = 64, K = 20, homogeneous and
 # heterogeneous_wgan at alpha 0.6 (bench_wgan.py's); LocalAdam's lr 2e-3.
-WGAN_M, WGAN_K, WGAN_R = 64, 20, 40
+# R = 20 of bench_wgan.py's 40, to keep the whole script near 800 s of its
+# 1200 s limit; every check runs at R = 20 as it did at 40.
+WGAN_M, WGAN_K, WGAN_R = 64, 20, 20
 WGAN_ALPHA, WGAN_ADAM_LR = 0.6, 2e-3
 WGAN_EVERY = 10      # rounds between the printed W-estimates and distances
 # Fused against reference W-estimates: the JAX package's bar between its
@@ -408,6 +451,14 @@ def max_abs(a, b) -> float:
 
 def rel_err(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def _flat(out):
+    """A wrapper's outputs (a tensor, or nested tuples of them) as a flat
+    list of tensors."""
+    if hasattr(out, "data_ptr"):
+        return [out]
+    return [t for o in out for t in _flat(o)]
 
 
 def fresh_graph_ms(fn, sets):
@@ -627,12 +678,6 @@ def phase_kernels():
 
     # Timing inputs: 12 sets of the main path's shape, cycled so the bytes
     # in flight exceed the 50 MB L2, as the main path finds them cold.
-    def flat(out):
-        """A wrapper's outputs as a flat list of tensors."""
-        if isinstance(out, torch.Tensor):
-            return [out]
-        return [t for o in out for t in flat(o)]
-
     sets = [inputs(100 + i, N) for i in range(12)]
     results = {}
     for name, c in cases.items():
@@ -641,8 +686,8 @@ def phase_kernels():
                 ((N, (-1.0, 1.0)), (N_RAGGED, (0.25, 1.0))),
                 (c["run"], *c.get("more", ()))):
             x = inputs(1, n)
-            got = flat(run(x, box, c["kernel"]))
-            want = flat(run(x, box, c["plain"]))
+            got = _flat(run(x, box, c["kernel"]))
+            want = _flat(run(x, box, c["plain"]))
             torch.cuda.synchronize()
             for gt, wt in zip(got, want):
                 if gt.ndim == 2:                      # elementwise output
@@ -1538,14 +1583,17 @@ def phase_sync_wrappers():
 
 
 def phase_sync_bits(path):
-    """The sync wrappers' outputs on fixed inputs, saved to ``path`` (CPU
-    tensors, ``torch.save``): B5 at (M, N) with unit, normalised and gated
-    weights, at (4, N_RAGGED) and at MERGE_FLEET; B6-B9 at (M, N) with
-    weights, residuals and a dead row; B10 at (M, N_RAGGED). It calls only
-    the wrappers, so another tree's outputs can be saved the same way and
-    held against these to the bit (``--compare-bits``)."""
+    """The sync and update wrappers' outputs on fixed inputs, saved to
+    ``path`` (CPU tensors, ``torch.save``, each output flattened into one):
+    B5 at (M, N) with unit, normalised and gated weights, at (4, N_RAGGED)
+    and at MERGE_FLEET; B6-B9 at (M, N) with weights, residuals and a dead
+    row; B10 at (M, N_RAGGED); B1-B4 at UPDATE_BITS_SHAPES (box, eta fused;
+    B4 in its l2 raw-norms mode too). It calls only the wrappers, so another
+    tree's outputs can be saved the same way and held against these to the
+    bit (``--compare-bits``)."""
     import torch
 
+    from repro_torch.kernels.adaseg_update import kernel as ak
     from repro_torch.kernels.sync_compress import kernel as sk
 
     dev = torch.device("cuda")
@@ -1580,6 +1628,23 @@ def phase_sync_bits(path):
                                                       alive)
     out["trimmed"] = sk.trimmed_merge_stacked(
         rand(M, N_RAGGED), w, torch.ones(M, device=dev), trim=TRIMS[0])
+    # the update kernels B1-B4 (box mode, eta fused; B4's l2 raw norms too)
+    for m, n in UPDATE_BITS_SHAPES:
+        z, mt, gt = rand(m, n), rand(m, n) * 30, rand(m, n) * 30
+        sum_sq = (rand(m) + 1.0) * 5e3
+        st, sl = rand(m) * 0.25 + 0.75, rand(m) * 0.25 + 0.75
+        kw = dict(sum_sq=sum_sq, g0=G0, d_alpha=DIAMETER, lo=-1.0, hi=1.0)
+        tag = f"{m}x{n}"
+        out[f"explore_{tag}"] = ak.adaseg_explore(z, mt, **kw)
+        zt = out[f"explore_{tag}"][0]
+        out[f"anchor_{tag}"] = ak.adaseg_anchor(z, zt, gt, **kw)
+        out[f"finish_{tag}"] = ak.adaseg_finish(z, mt, gt, st, sl)
+        out[f"update_{tag}"] = ak.adaseg_update(z, mt, gt, **kw)
+        out[f"update_raw_{tag}"] = ak.adaseg_update(
+            z, mt, gt, sum_sq=sum_sq, g0=G0, d_alpha=DIAMETER,
+            raw_norms=True)
+    out = {k: torch.cat([t.reshape(-1) for t in _flat(v)])
+           for k, v in out.items()}
     torch.save({k: v.cpu() for k, v in out.items()}, path)
     emit("sync_bits", path=path, outputs=sorted(out))
 
@@ -1745,6 +1810,222 @@ def phase_robust(results, game):
          checkpoint_bytes=size, bit_identical=same,
          residuals=[r.residual for r in resumed.trace.rounds])
     check(same, "the resumed run differs from the uninterrupted one")
+
+
+def async_engine(game, tau, backend="fused", rounds=R, **kw):
+    """The port's AsyncPSEngine on the main game under ASYNC_LATENCY:
+    LocalAdaSEG at the main path's settings, staleness bound ``tau``;
+    ``kw`` go to AsyncPSConfig (compressor, byzantine, ...) or, for
+    ``tracer`` and ``metrics``, to the engine."""
+    from repro_torch import random as jr
+    from repro_torch.core import AdaSEGConfig
+    from repro_torch.ps import AsyncPSConfig, AsyncPSEngine, ConstantLatency
+
+    eng_kw = {k: kw.pop(k) for k in ("tracer", "metrics") if k in kw}
+    cfg = AsyncPSConfig(
+        adaseg=AdaSEGConfig(g0=G0, diameter=DIAMETER, k=K), num_workers=M,
+        rounds=rounds, backend=backend, codec_backend=backend,
+        latency=ConstantLatency(**ASYNC_LATENCY), staleness_bound=tau, **kw)
+    return AsyncPSEngine(game.problem, cfg, rng=jr.PRNGKey(1),
+                         eval_fn=game.residual, **eng_kw)
+
+
+def async_leaves(eng):
+    """Every tensor of an async engine's dynamic state, in order."""
+    import torch
+
+    from repro_torch.checkpoint.serialize import tree_flatten
+
+    return [x for x in tree_flatten((eng.state, eng._ef, eng._srv_payload,
+                                     eng._srv_sw, eng._srv))
+            if isinstance(x, torch.Tensor)]
+
+
+def async_host(eng):
+    """Every host-side field of every record of an async run's trace."""
+    return [(r.round, r.local_steps, r.alive, r.bytes_up, r.bytes_down,
+             r.sim_time_s, r.staleness, r.idle_frac, r.byzantine_workers)
+            for r in eng.trace.rounds]
+
+
+def run_async(game, label, tau, backend="fused", **kw):
+    """Drive one async engine to its end on the card: the engine, its
+    seconds, and its launches per kernel (counts zeroed before)."""
+    import torch
+
+    eng = async_engine(game, tau, backend, **kw)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zbar = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    res = [r.residual for r in eng.trace.rounds]
+    check(eng.done and all(v is not None and math.isfinite(v) for v in res),
+          f"async {label} {backend}: unfinished or non-finite {res}")
+    check(all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (N,)
+              for v in zbar), f"async {label} {backend}: bad output")
+    return eng, seconds, counts
+
+
+def emit_async(label, tau, backend, eng, seconds, counts, target=None,
+               **extra):
+    """One ``async`` line: the clock, the records and the timings."""
+    trace = eng.trace
+    walls = [r["value"] for r in eng.metrics.records
+             if r["name"] == "admission_wall_s"]
+    phases = [sp.wall_dur * 1e3 for sp in eng.tracer.spans
+              if sp.cat == "local-compute" and sp.wall_t0 is not None]
+    emit("async", run=label, tau=None if math.isinf(tau) else tau,
+         backend=backend, sim_time_s=eng.sim_time,
+         admissions=eng.n_admissions,
+         final_residual=trace.rounds[-1].residual,
+         residuals=[r.residual for r in trace.rounds],
+         idle_frac=eng.idle_fraction(), max_staleness=trace.max_staleness,
+         time_to_target_s=(None if target is None
+                           else trace.time_to_residual(target)),
+         seconds=seconds,
+         wall_s_per_admission=statistics.mean(walls) if walls else None,
+         phase_batches=len(phases),
+         phase_batch_ms=statistics.mean(phases) if phases else None,
+         launches={k: v for k, v in counts.items() if v}, **extra)
+
+
+def phase_async(results, game, smi):
+    """The event-driven async engine (A12) on the main path's game at M=64,
+    K=50, R=5 under ASYNC_LATENCY. tau=0 fused: every admission the whole
+    fleet (the sync chunk), state and z-bar bit-identical to the port's
+    PSEngine. tau=2, fused and reference: residual traces within
+    TOL_TRACE, host records equal; a fused rerun, a run killed at
+    admission ASYNC_KILL, saved, restored into a new engine and finished,
+    and a run with spans and metrics off, each bit-identical to the first.
+    tau=inf fused. Time-to-target of tau=2 and inf against tau=0's final
+    residual is reported, not gated. Then at tau=2, R=ASYNC_CELL_R: q8
+    with error feedback (B6, B7), a 20% sign-flip attack under a trimmed
+    mean (B10), outer Nesterov (B11). Each fused run must launch B1 and B2
+    on its phases; B5 at tau=0."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.serialize import tree_flatten
+    from repro_torch.obs import MetricsRegistry, SpanTracer
+    from repro_torch.ps import (
+        ServerNesterov,
+        SignFlipAttack,
+        StochasticQuantizeCompressor,
+        TrimmedMean,
+    )
+
+    t_phase = time.perf_counter()
+
+    def launched(label, counts, names):
+        for name in names:
+            check(counts[name] > 0,
+                  f"async {label}: {name} never launched on its path")
+            if results is not None:
+                results[name].setdefault("async_launches", {})[label] = (
+                    counts[name])
+
+    # tau = 0: lockstep admissions, the port's PSEngine to the bit
+    e0, s0, c0 = run_async(game, "tau0", 0.0)
+    launched("tau0", c0, ("adaseg_explore", "adaseg_anchor",
+                          "merge_stacked"))
+    _, _, sync = run_engine(game, game.problem, "fused", R)
+    check(all(r.staleness == [0] * M for r in e0.trace.rounds),
+          "async tau0: an admission was not the whole fleet")
+    pairs = list(zip(tree_flatten(e0.state), tree_flatten(sync.state)))
+    pairs += list(zip(e0.z_bar(), sync.z_bar()))
+    same = all(torch.equal(a, b) for a, b in pairs)
+    check(same, "async tau0: not bit-identical to PSEngine")
+    target = e0.trace.rounds[-1].residual
+    emit_async("tau0", 0.0, "fused", e0, s0, c0,
+               bit_identical_to_psengine=same)
+    del sync
+
+    # tau = 2: fused against reference, rerun, resume, spans off
+    e2, s2, c2 = run_async(game, "tau2", 2.0)
+    launched("tau2", c2, ("adaseg_explore", "adaseg_anchor"))
+    emit_async("tau2", 2.0, "fused", e2, s2, c2, target)
+    first = async_leaves(e2)
+    res_f = [r.residual for r in e2.trace.rounds]
+    er, sr, cr = run_async(game, "tau2", 2.0, "reference")
+    check(async_host(er) == async_host(e2),
+          "async tau2: host records differ between the backends")
+    gaps = hold_fused_vs_reference("async", "tau2", res_f,
+                                   [r.residual for r in er.trace.rounds])
+    emit_async("tau2", 2.0, "reference", er, sr, cr, target,
+               rel_gap=gaps)
+    del er
+
+    def bitwise(label, eng):
+        same = (all(torch.equal(a, b) for a, b in zip(async_leaves(eng),
+                                                       first))
+                and [r.residual for r in eng.trace.rounds] == res_f
+                and async_host(eng) == async_host(e2))
+        check(same, f"async tau2: the {label} is not bit-identical")
+        return same
+
+    again, _, _ = run_async(game, "tau2", 2.0)
+    checks = dict(rerun=bitwise("rerun", again))
+    del again
+    part = async_engine(game, 2.0)
+    part.run(until_admissions=ASYNC_KILL)
+    check(not part.done and part.n_admissions == ASYNC_KILL,
+          "async tau2: the kill point is not mid-run")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "async.ckpt")
+        part.save(path)
+        size = Path(path).stat().st_size
+        resumed = async_engine(game, 2.0).restore(path)
+    resumed.run()
+    checks["resume"] = (
+        all(torch.equal(a, b) for a, b in zip(async_leaves(resumed), first))
+        and [r.residual for r in resumed.trace.rounds] == res_f[ASYNC_KILL:])
+    check(checks["resume"], "async tau2: the resumed run differs")
+    del part, resumed
+    off, _, _ = run_async(game, "tau2", 2.0,
+                          tracer=SpanTracer(enabled=False),
+                          metrics=MetricsRegistry(enabled=False))
+    check(not off.tracer.spans and not off.metrics.records,
+          "async tau2: spans or metrics recorded while off")
+    checks["spans_metrics_off"] = bitwise("run with spans and metrics off",
+                                          off)
+    del off
+    emit("async_checks", run="tau2", backend="fused",
+         kill_at_admission=ASYNC_KILL, checkpoint_bytes=size, **checks)
+
+    # tau = inf
+    ei, si, ci = run_async(game, "tauinf", math.inf)
+    launched("tauinf", ci, ("adaseg_explore", "adaseg_anchor"))
+    emit_async("tauinf", math.inf, "fused", ei, si, ci, target)
+    del ei
+
+    # the cells at tau = 2, R = ASYNC_CELL_R
+    cells = {
+        "q8": (dict(compressor=StochasticQuantizeCompressor(bits=8)),
+               ("uplink_stats", "quantize_uplink")),
+        "robust": (dict(byzantine=SignFlipAttack(**ATTACK),
+                        aggregator=TrimmedMean(beta=0.2)),
+                   ("trimmed_merge_stacked",)),
+        "nesterov": (dict(server_opt=ServerNesterov(lr=1.0, beta=0.3)),
+                     ("outer_apply",)),
+    }
+    for label, (kw, names) in cells.items():
+        eng, sec, counts = run_async(game, f"tau2/{label}", 2.0,
+                                     rounds=ASYNC_CELL_R, **kw)
+        launched(f"tau2/{label}", counts,
+                 ("adaseg_explore", "adaseg_anchor") + names)
+        emit_async(f"tau2/{label}", 2.0, "fused", eng, sec, counts,
+                   rounds=ASYNC_CELL_R,
+                   byzantine_workers=sum(len(r.byzantine_workers or [])
+                                         for r in eng.trace.rounds),
+                   delta_norm=[r.delta_norm for r in eng.trace.rounds])
+        del eng
+    torch.cuda.empty_cache()
+    emit("async_phase", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
 
 
 def zoo_methods(g0, diameter, lr, k=K):
@@ -2499,14 +2780,84 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def fleet_update_rows(rows, m, n, dev):
+    """B1-B4 at the fleet ``(m, n)``, past the 65535 rows a grid's y
+    dimension takes (ROADMAP C15), box [-1, 1] and eta fused as on the main
+    path: B1 and B2 against their plain versions within TOL_FLEET_UPDATE,
+    B3 exactly, the per-worker sums at TOL_STAT, B4 bit-identical to B1
+    then B2; every call run twice, bit-identical, each launch timed by CUDA
+    events (the wrapper, its outputs made by the call)."""
+    import torch
+
+    from repro_torch.kernels.adaseg_update import kernel as ak
+    from repro_torch.kernels.adaseg_update import ref as ar
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def u(*shape, lo, hi):
+        return torch.rand(*shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    z, mt, gt = u(m, n, lo=-1, hi=1), u(m, n, lo=-30, hi=30), u(
+        m, n, lo=-30, hi=30)
+    kw = dict(sum_sq=u(m, lo=1e2, hi=1e4), g0=G0, d_alpha=DIAMETER, lo=-1.0,
+              hi=1.0)
+    s_t, s_l = u(m, lo=0.5, hi=1.0), u(m, lo=0.5, hi=1.0)
+
+    def hold(name, call, plain, tol, bytes_per_elem):
+        (got, ms), (again, ms2) = event_ms(call), event_ms(call)
+        check(all(torch.equal(a, b) for a, b in zip(_flat(got),
+                                                     _flat(again))),
+              f"fleet_rows {name}: reruns differ")
+        del again
+        want = plain()
+        errs, stat_errs = [0.0], [0.0]
+        for g, w in zip(_flat(got), _flat(want)):
+            if g.ndim == 2:
+                errs.append(max_abs(g, w))
+            else:
+                stat_errs.append(rel_err(g, w))
+        del want
+        err, stat = max(errs), max(stat_errs)
+        check(err <= tol and stat <= TOL_STAT,
+              f"fleet_rows {name}: max abs err {err} (bar {tol}), sums' "
+              f"rel err {stat}")
+        b_ms, b_by = bound(bytes_per_elem * m * n, 0.0)
+        rows[name] = dict(max_abs_err=err, tol=tol, stat_rel_err=stat,
+                          ms=[ms, ms2], bound_ms=b_ms, bound_by=b_by,
+                          reruns_bit_identical=True)
+        return got
+
+    zt, _, _ = hold("adaseg_explore", lambda: ak.adaseg_explore(z, mt, **kw),
+                    lambda: ar.adaseg_explore_ref(z, mt, **kw),
+                    TOL_FLEET_UPDATE, 12)
+    ztl, stat, _ = hold(
+        "adaseg_anchor", lambda: ak.adaseg_anchor(z, zt, gt, **kw),
+        lambda: ar.adaseg_anchor_ref(z, zt, gt, **kw), TOL_FLEET_UPDATE, 16)
+    hold("adaseg_finish", lambda: ak.adaseg_finish(z, mt, gt, s_t, s_l),
+         lambda: ar.adaseg_finish_ref(z, mt, gt, s_t, s_l), 0.0, 20)
+    u_t, u_tl, u_stat = hold(
+        "adaseg_update", lambda: ak.adaseg_update(z, mt, gt, **kw),
+        lambda: ar.adaseg_update_ref(z, mt, gt, **kw), TOL_FLEET_UPDATE, 20)
+    same = torch.equal(u_t, zt) and torch.equal(u_tl, ztl)
+    check(same, "fleet_rows adaseg_update: not bit-identical to B1 then B2")
+    rows["adaseg_update"].update(bit_identical_to_b1_b2=same,
+                                 stat_rel_err_vs_b2=rel_err(u_stat, stat))
+    check(rows["adaseg_update"]["stat_rel_err_vs_b2"] <= TOL_STAT,
+          "fleet_rows adaseg_update: its sums differ from B2's")
+    del z, mt, gt, zt, ztl, u_t, u_tl
+    torch.cuda.empty_cache()
+
+
 def phase_fleet_rows(smi):
-    """The sync kernels B5-B10 at FLEET_ROWS, past the 65535 rows a grid's
-    y dimension takes (ROADMAP C15): each against its plain version, the
-    uplink kernels exactly (a dead row past 65535), B5 (its weights past
-    the opt-in shared memory, read from global memory) at TOL_STAT, B10's
-    streamed path on FLEET_TRIM_COLS columns at TOL_STAT; B5 and B10 rerun
-    for bit equality. Each wrapper is timed warm (``time_ms``, its outputs
-    made by each call), B10 by its two launches, beside its bound."""
+    """The update kernels B1-B4 and the sync kernels B5-B10 at FLEET_ROWS,
+    past the 65535 rows a grid's y dimension takes (ROADMAP C15): B1-B4 as
+    ``fleet_update_rows`` holds them; each sync kernel against its plain
+    version, the uplink kernels exactly (a dead row past 65535), B5 (its
+    weights past the opt-in shared memory, read from global memory) at
+    TOL_STAT, B10's streamed path on FLEET_TRIM_COLS columns at TOL_STAT;
+    B5 and B10 rerun for bit equality. Each sync wrapper is timed warm
+    (``time_ms``, its outputs made by each call), B10 by its two launches,
+    beside its bound."""
     import torch
 
     from repro_torch.kernels.sync_compress import kernel as sk
@@ -2515,6 +2866,8 @@ def phase_fleet_rows(smi):
     m, n = FLEET_ROWS
     elems = m * n
     dev = torch.device("cuda")
+    rows = {}
+    fleet_update_rows(rows, m, n, dev)
     gen = torch.Generator(device=dev).manual_seed(21)
     z = torch.rand(m, n, generator=gen, device=dev) * 2 - 1
     ef = (torch.rand(m, n, generator=gen, device=dev) - 0.5) * 0.1
@@ -2522,7 +2875,6 @@ def phase_fleet_rows(smi):
     keys = torch.randint(0, 2 ** 32, (m, 2), generator=gen, device=dev)
     alive = torch.ones(m, device=dev)
     alive[FLEET_DEAD_ROW] = 0.0
-    rows = {}
 
     def hold(name, got, want, tol, fn, bytes_per_elem, **ops):
         got = got if isinstance(got, tuple) else (got,)
@@ -2847,6 +3199,11 @@ def main() -> int:
     from repro_torch.hardware import HBM_BW
 
     CARD["hbm_bytes_per_s"] = HBM_BW
+    if sys.argv[1:] == ["--kernels"]:
+        # B1-B5 at the main path's shapes through their launchers, whose C
+        # signatures a parent tree shares: two trees timed in one call
+        phase_kernels()
+        return 0
     if sys.argv[1:] == ["--zoo"]:
         from repro_torch import random as jr
         from repro_torch.problems import make_bilinear_game
@@ -2859,6 +3216,13 @@ def main() -> int:
     if sys.argv[1:] == ["--wgan"]:
         phase_wgan(smi)
         return 0
+    if sys.argv[1:] == ["--async"]:
+        from repro_torch import random as jr
+        from repro_torch.problems import make_bilinear_game
+
+        phase_async(None, make_bilinear_game(jr.PRNGKey(0), n=N, sigma=0.1),
+                    smi)
+        return 0
     results = phase_kernels()
     phase_codec_kernels(results)
     phase_merge_shapes()
@@ -2870,6 +3234,7 @@ def main() -> int:
     game = phase_main(results)
     phase_codec(results, game)
     phase_robust(results, game)
+    phase_async(results, game, smi)
     phase_zoo(game, smi)
     del game                       # free the 1 GiB coupling matrix
     phase_wgan(smi)

@@ -14,19 +14,24 @@
 // and 6.3 us for M=64, n=16384. The arithmetic (a few flops per element) is far below the f32
 // rate.
 //
-// Design: one launch covers the whole fleet. The grid is (column tiles x
-// workers); a block owns one tile of one worker's row, so eta (computed
-// in-register as d_alpha / sqrtf(g0^2 + sum_sq[m]) when fused), the box
-// clip and the per-worker statistics never leave registers, and every byte
-// is read or written exactly once. Loads and stores are float4 when the
-// row length and the pointers allow it; the ragged tail is masked by the
+// Design: one launch covers the whole fleet. The grid is one dimension,
+// row-major: block b owns tile b % tiles of worker row b / tiles, so a fleet
+// of any size fits (gridDim.x takes 2^31 - 1 blocks where gridDim.y stops
+// at 65535 rows). Since a block owns one tile of one worker's row, eta
+// (computed in-register as d_alpha / sqrtf(g0^2 + sum_sq[m]) when fused),
+// the box clip and the per-worker statistics never leave registers, and
+// every byte is read or written exactly once. A block splits its index by
+// a multiply and a shift the host set up (Split), never by a division on
+// the card. Loads and stores are float4 when the row length and the
+// pointers allow it; the ragged tail is masked by the
 // loop bound, so elements past n never enter the statistics (a box with
 // lo > 0 cannot leak clip(0) into them). Statistics are reduced with warp
 // shuffles, then across the block's warps in a fixed order, into
 // (M, tiles, k) partials with no atomics: the caller sums the tiles in a
 // fixed order, so reruns are bit-identical.
 //
-// Every entry point returns cudaGetLastError() after its launch.
+// Every entry point returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue when the grid would pass gridDim.x's limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,18 +100,38 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// The block's slice of its row: columns [start, end) of row blockIdx.y.
+// Block b's (row, tile) = (b / tiles, b % tiles), by a division the host
+// set up: row = umulhi(b, mul) >> shr (Granlund-Montgomery, exact for
+// b < 2^31), so each thread pays a multiply and a shift, not a division by
+// a runtime value. mul = 0 stands for tiles = 1.
+struct Split {
+  unsigned tiles;
+  unsigned mul;
+  unsigned shr;
+  __device__ __forceinline__ unsigned row(unsigned b) const {
+    return mul ? __umulhi(b, mul) >> shr : b;
+  }
+};
+
+// The block's slice of its row: columns [start, end) of row `row`, tile
+// `index` of the row's `tiles` (block row * tiles + index).
 struct Tile {
+  int row;
   int64_t base;  // row offset
   int start;
   int end;
-  __device__ Tile(int n, int tile) {
-    base = static_cast<int64_t>(blockIdx.y) * n;
-    start = blockIdx.x * tile;
+  __device__ __forceinline__ Tile(int n, int tile, Split split) {
+    const unsigned r = split.row(blockIdx.x);
+    const unsigned index = blockIdx.x - r * split.tiles;
+    row = static_cast<int>(r);
+    base = static_cast<int64_t>(row) * n;
+    start = static_cast<int>(index) * tile;
     end = min(start + tile, n);
   }
+  // The (rows, tiles, k) partials: block b writes entries [b*k, b*k + k),
+  // which is (row * tiles + index) * k.
   __device__ __forceinline__ float* partial(float* part, int k) const {
-    return part + (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * k;
+    return part + static_cast<int64_t>(blockIdx.x) * k;
   }
 };
 
@@ -116,9 +141,10 @@ struct Tile {
 __global__ void __launch_bounds__(kThreads)
 explore_kernel(const float* __restrict__ z, const float* __restrict__ m,
                float* __restrict__ out, float* __restrict__ part, int n,
-               int tile, int vec, Step step, Box box, int want_norm) {
-  const Tile t(n, tile);
-  const float eta = step.eta(blockIdx.y);
+               int tile, Split split, int vec, Step step, Box box,
+               int want_norm) {
+  const Tile t(n, tile, split);
+  const float eta = step.eta(t.row);
   float acc[2] = {0.f, 0.f};
   auto elem = [&](float zv, float mv) {
     const float o = box(zv - eta * mv);
@@ -150,10 +176,10 @@ explore_kernel(const float* __restrict__ z, const float* __restrict__ m,
 __global__ void __launch_bounds__(kThreads)
 anchor_kernel(const float* __restrict__ z, const float* __restrict__ zt,
               const float* __restrict__ g, float* __restrict__ ztl,
-              float* __restrict__ part, int n, int tile, int vec, Step step,
-              Box box) {
-  const Tile t(n, tile);
-  const float eta = step.eta(blockIdx.y);
+              float* __restrict__ part, int n, int tile, Split split,
+              int vec, Step step, Box box) {
+  const Tile t(n, tile, split);
+  const float eta = step.eta(t.row);
   float acc[2] = {0.f, 0.f};
   auto elem = [&](float zv, float tv, float gv) {
     const float l = box(zv - eta * gv);
@@ -190,10 +216,10 @@ finish_kernel(const float* __restrict__ z, const float* __restrict__ raw_t,
               const float* __restrict__ raw_l, const float* __restrict__ s_t,
               const float* __restrict__ s_l, float* __restrict__ zt,
               float* __restrict__ ztl, float* __restrict__ part, int n,
-              int tile, int vec) {
-  const Tile t(n, tile);
-  const float st = s_t[blockIdx.y];
-  const float sl = s_l[blockIdx.y];
+              int tile, Split split, int vec) {
+  const Tile t(n, tile, split);
+  const float st = s_t[t.row];
+  const float sl = s_l[t.row];
   float acc[1] = {0.f};
   auto elem = [&](float zv, float rt, float rl, float& ot, float& ol) {
     ot = st * rt;
@@ -231,9 +257,10 @@ __global__ void __launch_bounds__(kThreads)
 update_kernel(const float* __restrict__ z, const float* __restrict__ m,
               const float* __restrict__ g, float* __restrict__ zt,
               float* __restrict__ ztl, float* __restrict__ part, int n,
-              int tile, int vec, Step step, Box box, int raw_norms) {
-  const Tile t(n, tile);
-  const float eta = step.eta(blockIdx.y);
+              int tile, Split split, int vec, Step step, Box box,
+              int raw_norms) {
+  const Tile t(n, tile, split);
+  const float eta = step.eta(t.row);
   float acc[2] = {0.f, 0.f};
   auto elem = [&](float zv, float mv, float gv, float& ot, float& ol) {
     float a = zv - eta * mv;
@@ -271,9 +298,27 @@ update_kernel(const float* __restrict__ z, const float* __restrict__ m,
   block_sum_store<2>(acc, t.partial(part, 2));
 }
 
-dim3 grid_of(int rows, int n, int tile) {
-  return dim3(static_cast<unsigned>((n + tile - 1) / tile),
-              static_cast<unsigned>(rows));
+// The grid: a block a (row, tile), rows folded into gridDim.x, and the
+// split of a block index into the two. False when the blocks exceed
+// gridDim.x's 2^31 - 1.
+bool grid_of(int rows, int n, int tile, dim3* grid, Split* split) {
+  const int64_t tiles = (n + tile - 1) / tile;
+  const int64_t blocks = static_cast<int64_t>(rows) * tiles;
+  if (rows <= 0 || tiles <= 0 || blocks > INT32_MAX) return false;
+  *grid = dim3(static_cast<unsigned>(blocks));
+  split->tiles = static_cast<unsigned>(tiles);
+  if (tiles == 1) {
+    split->mul = 0;
+    split->shr = 0;
+  } else {
+    int log2 = 0;  // ceil(log2(tiles))
+    while ((int64_t{1} << log2) < tiles) ++log2;
+    const int p = 31 + log2;
+    split->mul = static_cast<unsigned>(((uint64_t{1} << p) + tiles - 1) /
+                                       static_cast<uint64_t>(tiles));
+    split->shr = static_cast<unsigned>(p - 32);
+  }
+  return true;
 }
 
 }  // namespace
@@ -285,10 +330,15 @@ int adaseg_explore_launch(const float* z, const float* m, const float* sched,
                           int vec, int fuse_eta, float g0_sq, float d_alpha,
                           int has_box, float lo, float hi, int want_norm,
                           void* stream) {
-  explore_kernel<<<grid_of(rows, n, tile), kThreads, 0,
+  dim3 grid;
+  Split split;
+  if (!grid_of(rows, n, tile, &grid, &split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  explore_kernel<<<grid, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      z, m, out, part, n, tile, vec, Step{sched, fuse_eta, g0_sq, d_alpha},
-      Box{has_box, lo, hi}, want_norm);
+      z, m, out, part, n, tile, split, vec,
+      Step{sched, fuse_eta, g0_sq, d_alpha}, Box{has_box, lo, hi}, want_norm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,10 +347,15 @@ int adaseg_anchor_launch(const float* z, const float* zt, const float* g,
                          int rows, int n, int tile, int vec, int fuse_eta,
                          float g0_sq, float d_alpha, int has_box, float lo,
                          float hi, void* stream) {
-  anchor_kernel<<<grid_of(rows, n, tile), kThreads, 0,
+  dim3 grid;
+  Split split;
+  if (!grid_of(rows, n, tile, &grid, &split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  anchor_kernel<<<grid, kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      z, zt, g, ztl, part, n, tile, vec, Step{sched, fuse_eta, g0_sq, d_alpha},
-      Box{has_box, lo, hi});
+      z, zt, g, ztl, part, n, tile, split, vec,
+      Step{sched, fuse_eta, g0_sq, d_alpha}, Box{has_box, lo, hi});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,9 +363,14 @@ int adaseg_finish_launch(const float* z, const float* raw_t,
                          const float* raw_l, const float* s_t,
                          const float* s_l, float* zt, float* ztl, float* part,
                          int rows, int n, int tile, int vec, void* stream) {
-  finish_kernel<<<grid_of(rows, n, tile), kThreads, 0,
+  dim3 grid;
+  Split split;
+  if (!grid_of(rows, n, tile, &grid, &split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  finish_kernel<<<grid, kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      z, raw_t, raw_l, s_t, s_l, zt, ztl, part, n, tile, vec);
+      z, raw_t, raw_l, s_t, s_l, zt, ztl, part, n, tile, split, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,9 +380,14 @@ int adaseg_update_launch(const float* z, const float* m, const float* g,
                          int fuse_eta, float g0_sq, float d_alpha,
                          int has_box, float lo, float hi, int raw_norms,
                          void* stream) {
-  update_kernel<<<grid_of(rows, n, tile), kThreads, 0,
+  dim3 grid;
+  Split split;
+  if (!grid_of(rows, n, tile, &grid, &split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  update_kernel<<<grid, kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      z, m, g, zt, ztl, part, n, tile, vec,
+      z, m, g, zt, ztl, part, n, tile, split, vec,
       Step{sched, fuse_eta, g0_sq, d_alpha}, Box{has_box, lo, hi}, raw_norms);
   return static_cast<int>(cudaGetLastError());
 }

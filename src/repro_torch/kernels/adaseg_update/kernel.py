@@ -21,7 +21,9 @@ returns per-worker ``(M,)`` statistics:
 
 A CPU tensor goes to the plain version in :mod:`.ref`; a CUDA tensor
 launches the kernel or raises. The kernel writes ``(M, tiles, k)``
-partials that are summed here over the tiles in a fixed order.
+partials that are summed here over the tiles in a fixed order. The worker
+rows are folded into the grid's first dimension, so a fleet of any size
+fits.
 """
 from __future__ import annotations
 
@@ -63,9 +65,15 @@ def _sched(eta, sum_sq, rows, like):
 
 
 def _layout(name, *tensors):
-    """Check the (M, n) operands; returns (M, n, tiles, vec)."""
-    rows, n, vec = _build.layout(name, *tensors)
-    return rows, n, (n + TILE - 1) // TILE, vec
+    """Check the (M, n) operands; returns (M, n, tiles, vec). The kernels
+    fold the rows into ``gridDim.x``, so any fleet fits whose
+    ``rows × tiles`` blocks stay within its 2³¹ − 1."""
+    rows, n, vec = _build.layout(name, *tensors, max_rows=None)
+    tiles = (n + TILE - 1) // TILE
+    if rows * tiles > 2 ** 31 - 1:
+        raise ValueError(f"{name}: {rows} rows of {tiles} tiles pass the "
+                         "grid's 2^31 - 1 blocks")
+    return rows, n, tiles, vec
 
 
 def _box_args(lo, hi):

@@ -6,9 +6,10 @@ engine (port of ``repro.launch.train``, serial path).
 :class:`~repro_torch.models.ModelWorker` on
 :func:`~repro_torch.models.make_lm_problem`: the same call the JAX
 package's examples make, with ``mesh=None`` and ``plan.workers_override``
-setting the worker count M. The sharded path (``mesh=``, ROADMAP A20) and
-the async engine (``latency=``/``staleness_bound=``, A12) are ported in
-later slices, the GSPMD round function and the dry-run shapes with them.
+setting the worker count M; with ``latency=`` or ``staleness_bound=`` it
+is an :class:`~repro_torch.ps.AsyncPSEngine` instead, as in the JAX
+package. The sharded path (``mesh=``, ROADMAP A20) is ported in a later
+slice, the GSPMD round function and the dry-run shapes with it.
 
 Examples
 --------
@@ -29,6 +30,7 @@ Examples
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
@@ -96,7 +98,10 @@ def make_ps_engine(
     make_lm_problem` and its AdaSEG settings as a ``ModelWorker`` whose
     step backend is ``backend`` (``"reference"`` or ``"fused"``: the JAX
     package's worker always takes its reference step), and hands both to
-    :class:`~repro_torch.ps.PSEngine` with ``codec_backend`` for the sync.
+    :class:`~repro_torch.ps.PSEngine` with ``codec_backend`` for the sync,
+    or, when ``latency`` or ``staleness_bound`` is given, to
+    :class:`~repro_torch.ps.AsyncPSEngine` (τ = ``staleness_bound``, ∞
+    when None; γ = ``staleness_discount``).
     ``eval_fn="loss"`` installs :func:`~repro_torch.models.make_eval_loss`
     on a held-out batch; pass None or a callable to override.
     ``trace_meta`` is merged into the trace's metadata; ``tracer`` and
@@ -104,15 +109,11 @@ def make_ps_engine(
     engine."""
     from ..models.problem import make_eval_loss, make_lm_problem
     from ..models.worker import ModelWorker
-    from ..ps import PSConfig, PSEngine
+    from ..ps import AsyncPSConfig, AsyncPSEngine, PSConfig, PSEngine
 
     if mesh is not None:
         raise NotImplementedError(
             "make_ps_engine(mesh=...) is the sharded path (ROADMAP A20)")
-    if latency is not None or staleness_bound is not None:
-        raise NotImplementedError(
-            "the async engine (latency=, staleness_bound=) is ported with "
-            "ROADMAP A12")
     dev = resolve_device(device)
     m = plan.workers_override
     if not m:
@@ -123,12 +124,21 @@ def make_ps_engine(
     worker = ModelWorker(plan.adaseg, backend=backend, arch=plan.cfg.name)
     if eval_fn == "loss":
         eval_fn = make_eval_loss(plan.cfg, batch=b, seq=plan.seq, device=dev)
-    config = PSConfig(num_workers=m, rounds=rounds, worker=worker,
-                      local_k=plan.k_local, schedule=schedule,
-                      compressor=compressor, faults=faults,
-                      codec_backend=codec_backend)
-    engine = PSEngine(problem, config, rng, eval_fn=eval_fn, tracer=tracer,
-                      metrics=metrics, device=dev)
+    common = dict(num_workers=m, rounds=rounds, worker=worker,
+                  local_k=plan.k_local, schedule=schedule,
+                  compressor=compressor, faults=faults,
+                  codec_backend=codec_backend)
+    if latency is not None or staleness_bound is not None:
+        config = AsyncPSConfig(
+            **common, latency=latency,
+            staleness_bound=(math.inf if staleness_bound is None
+                             else staleness_bound),
+            staleness_discount=staleness_discount)
+        return AsyncPSEngine(problem, config, rng, eval_fn=eval_fn,
+                             trace_meta=trace_meta, tracer=tracer,
+                             metrics=metrics, device=dev)
+    engine = PSEngine(problem, PSConfig(**common), rng, eval_fn=eval_fn,
+                      tracer=tracer, metrics=metrics, device=dev)
     if trace_meta:
         engine.trace.meta.update(trace_meta)
     return engine

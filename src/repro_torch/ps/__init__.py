@@ -2,10 +2,13 @@
 codecs (identity, stochastic quantization and top-k, with error feedback),
 schedules and fault policies, hostile fleets (Byzantine attacks, DP
 uplinks, robust merges), the server-side outer optimizer, checkpoints, and
-Dirichlet-heterogeneous workers (``partition``).
-The rest of the JAX package's runtime is ported in later slices."""
+Dirichlet-heterogeneous workers (``partition``), and the event-driven
+asynchronous engine over simulated time (``AsyncPSEngine`` with the
+``latency`` models). Client sampling and the sharded path are ported in
+later slices."""
 from ..core.adaseg import AdaSEGConfig
 from ..core.worker import AdaSEGWorker, LocalWorker
+from .async_engine import AsyncPSConfig, AsyncPSEngine
 from .compress import (
     IdentityCompressor,
     StochasticQuantizeCompressor,
@@ -23,6 +26,14 @@ from .engine import (
     resolve_robust,
 )
 from .faults import BernoulliFaults, FaultPolicy, NoFaults, OutageFaults
+from .latency import (
+    ConstantLatency,
+    LatencyModel,
+    LatencyTables,
+    LognormalLatency,
+    MarkovLatency,
+    TraceLatency,
+)
 from .partition import (
     heterogeneous_bilinear,
     heterogeneous_robust,
@@ -63,16 +74,23 @@ from .trace import RoundRecord, TraceRecorder
 __all__ = [
     "AdaSEGConfig",
     "AdaSEGWorker",
+    "AsyncPSConfig",
+    "AsyncPSEngine",
     "BernoulliFaults",
     "ByzantinePolicy",
     "CollusionAttack",
+    "ConstantLatency",
     "CoordinateMedian",
     "DPUplink",
     "ElasticSchedule",
     "FaultPolicy",
     "FixedSchedule",
     "IdentityCompressor",
+    "LatencyModel",
+    "LatencyTables",
     "LocalWorker",
+    "LognormalLatency",
+    "MarkovLatency",
     "MultiKrum",
     "NoFaults",
     "NoServerOpt",
@@ -92,6 +110,7 @@ __all__ = [
     "StragglerSchedule",
     "SyncCompressor",
     "TopKCompressor",
+    "TraceLatency",
     "TraceRecorder",
     "TrimmedMean",
     "UniformSchedule",

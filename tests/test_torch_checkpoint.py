@@ -346,3 +346,122 @@ def test_checkpoint_dtypes(games):
     assert tree["server_opt"]["t"].dtype == torch.int32
     key = interop.key_from_numpy(tree["rng0"], device="cpu")
     assert key.dtype == torch.int64 and tuple(key.shape) == (2,)
+
+
+# ---------------------------------------------------------------------------
+# The async engine's checkpoints (the per-worker event machine, float64
+# times as raw bytes), across packages and within the port
+# ---------------------------------------------------------------------------
+
+ASYNC_M, ASYNC_R = 4, 6
+ASYNC_CONFIGS = {
+    "plain": lambda mod: {},
+    "stack": lambda mod: dict(
+        schedule=mod.StragglerSchedule(k=4, min_frac=0.5, seed=2,
+                                       slow_workers=(3,)),
+        compressor=mod.StochasticQuantizeCompressor(bits=8),
+        faults=mod.BernoulliFaults(p=0.1, seed=3),
+        byzantine=mod.SignFlipAttack(fraction=0.25, scale=8.0, seed=11),
+        aggregator=mod.TrimmedMean(beta=0.25),
+        server_opt=mod.ServerNesterov(lr=1.0, beta=0.3)),
+}
+
+
+def _async_config(mod, cfg, config):
+    return mod.AsyncPSConfig(
+        adaseg=cfg(**CFG), num_workers=ASYNC_M, rounds=ASYNC_R,
+        latency=mod.MarkovLatency(step_s=1.0, slow_factor=6.0, p_slow=0.2,
+                                  p_recover=0.4, up_s=0.3, down_s=0.2,
+                                  seed=5, start_slow=(1,)),
+        staleness_bound=2.0, **ASYNC_CONFIGS[config](mod))
+
+
+def _jax_async(jg, config):
+    return jps.AsyncPSEngine(jg.problem, _async_config(jps, JaxCfg, config),
+                             rng=jax.random.PRNGKey(2), eval_fn=jg.residual)
+
+
+def _port_async(tg, config):
+    return tps.AsyncPSEngine(
+        tg.problem, _async_config(tps, AdaSEGConfig, config),
+        rng=jr.PRNGKey(2, device="cpu"), eval_fn=tg.residual, device="cpu")
+
+
+def _async_host(eng):
+    return [(r.round, r.alive, r.local_steps, r.sim_time_s, r.staleness)
+            for r in eng.trace.rounds]
+
+
+@pytest.mark.parametrize("config", list(ASYNC_CONFIGS))
+def test_async_layout_matches_jax_save_pytree(games, tmp_path, config):
+    """A JAX async engine saved mid-event-queue, restored into the port and
+    saved again: the same leaves, dtypes, shapes and bytes (the float64
+    event times as the JAX package's ``_f64_bytes``)."""
+    from repro.ps.async_engine import _f64_bytes as jax_f64_bytes
+    from repro_torch.ps.async_engine import _f64_bytes
+
+    jg, tg = games
+    je = _jax_async(jg, config)
+    je.run(until_admissions=4)
+    assert not je.done
+    jpath, tpath = tmp_path / "jax.ckpt", tmp_path / "port.ckpt"
+    je.save(str(jpath))
+    te = _port_async(tg, config).restore(str(jpath))
+    assert te.n_admissions == 4 and te.now == je.now
+    te.save(str(tpath))
+    jp = msgpack.unpackb(jpath.read_bytes())
+    tp = msgpack.unpackb(tpath.read_bytes())
+    assert len(tp["leaves"]) == len(jp["leaves"])
+    for a, b in zip(tp["leaves"], jp["leaves"]):
+        assert (a["dtype"], a["shape"], a["data"]) == (
+            b["dtype"], b["shape"], b["data"])
+    assert msgpack.packb({**jp, "treedef": tp["treedef"]}) == \
+        tpath.read_bytes()
+    times = np.array([0.0, 1.5, 2.0 ** -40, 1e300, -3.25])
+    np.testing.assert_array_equal(_f64_bytes(times),
+                                  np.asarray(jax_f64_bytes(times)))
+
+
+@pytest.mark.parametrize("config", list(ASYNC_CONFIGS))
+def test_jax_async_checkpoint_restores_into_the_port(games, tmp_path,
+                                                     config):
+    """Killed at admission 4 in the JAX package, finished in the port: the
+    host records equal the JAX engine's uninterrupted run, the residuals
+    and z̄ agree at rtol 1e-5 / atol 1e-6."""
+    jg, tg = games
+    whole = _jax_async(jg, config)
+    z_whole = whole.run()
+    part = _jax_async(jg, config)
+    part.run(until_admissions=4)
+    path = str(tmp_path / "ck")
+    part.save(path)
+    te = _port_async(tg, config).restore(path)
+    assert te.trace.rounds == []
+    z_t = te.run()
+    assert _async_host(te) == _async_host(whole)[4:]
+    assert te.sim_time == whole.sim_time
+    _close([r.residual for r in te.trace.rounds],
+           [r.residual for r in whole.trace.rounds[4:]])
+    for a, b in zip(z_t, jax.tree.leaves(z_whole)):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("config", list(ASYNC_CONFIGS))
+def test_port_async_checkpoint_loads_into_jax(games, tmp_path, config):
+    jg, tg = games
+    whole = _port_async(tg, config)
+    z_whole = whole.run()
+    part = _port_async(tg, config)
+    part.run(until_admissions=4)
+    path = str(tmp_path / "ck")
+    part.save(path)
+    je = _jax_async(jg, config).restore(path)
+    assert je.n_admissions == 4
+    for a, b in zip(je.state.z_tilde, part.state.z_tilde):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    z_j = je.run()
+    assert _async_host(je) == _async_host(whole)[4:]
+    _close([r.residual for r in je.trace.rounds],
+           [r.residual for r in whole.trace.rounds[4:]])
+    for a, b in zip(jax.tree.leaves(z_j), z_whole):
+        _close(a, b)

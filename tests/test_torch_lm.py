@@ -381,12 +381,60 @@ def test_make_ps_engine_refuses_later_slices():
     key = _key(0)
     with pytest.raises(NotImplementedError, match="A20"):
         make_ps_engine(plan, key, rounds=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_ps_engine(plan, key, rounds=1, staleness_bound=1.0,
-                       device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):        # the default is the card
             make_ps_engine(plan, key, rounds=1)
+
+
+def _host(eng):
+    """Every host-side field of every record of an engine's trace."""
+    return [(r.round, r.local_steps, r.alive, r.bytes_up, r.bytes_down,
+             r.sim_time_s, r.staleness, r.idle_frac) for r in eng.trace.rounds]
+
+
+ASYNC_LATENCY = dict(step_s=(1.0, 3.0), up_s=0.5)
+
+
+@pytest.fixture(scope="module")
+def jax_async_run():
+    """The JAX package's async engine on tiny-lm, as
+    ``tests/test_model_worker.py`` runs it: a 3× straggler, τ=1."""
+    from repro import ps as jps
+
+    je = jax_make_ps_engine(
+        JaxPlan(cfg=_jax_cfg("tiny"), adaseg=JaxAdaSEG(**ADASEG),
+                **_plan_kw()),
+        jax.random.PRNGKey(0), rounds=R,
+        latency=jps.ConstantLatency(**ASYNC_LATENCY), staleness_bound=1.0)
+    z = _jax_leaves(je.run())
+    return je, z
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_make_ps_engine_async_matches_jax(jax_async_run, backend):
+    """``make_ps_engine(latency=, staleness_bound=)`` on tiny-lm builds the
+    port's async engine, which matches the JAX package's: host records
+    exactly, the eval-loss trace at rtol 1e-5, z̄ at rtol 1e-4 / atol
+    1e-5."""
+    from repro_torch import ps as tps
+
+    je, z_j = jax_async_run
+    te = make_ps_engine(
+        TrainPlan(cfg=_port_cfg(_jax_cfg("tiny")),
+                  adaseg=AdaSEGConfig(**ADASEG), **_plan_kw()),
+        _key(0), rounds=R, latency=tps.ConstantLatency(**ASYNC_LATENCY),
+        staleness_bound=1.0, backend=backend, codec_backend=backend,
+        device="cpu")
+    assert isinstance(te, tps.AsyncPSEngine)
+    assert te.trace.meta["staleness_bound"] == 1.0
+    z_t = te.run()
+    assert _host(te) == _host(je) and te.n_admissions > R
+    np.testing.assert_allclose([r.residual for r in te.trace.rounds],
+                               [r.residual for r in je.trace.rounds],
+                               rtol=TRACE_RTOL)
+    assert len(z_t) == len(z_j)
+    for g, w in zip(z_t, z_j):
+        np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
 
 
 @pytest.mark.parametrize("arch", ["tiny-lm", "qwen2-0.5b", "mamba2-370m"])

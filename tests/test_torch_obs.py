@@ -304,6 +304,86 @@ def test_make_ps_engine_accepts_metrics():
     assert reg.histogram("round_wall_s")["count"] == 1
 
 
+def _async_engines(**kw):
+    """The JAX and the port's async engines on one game (identical
+    coefficients) under a 6× straggler at τ=2, each with ``kw``'s layers."""
+    jg = jax_game(jax.random.PRNGKey(0), n=N, sigma=0.1)
+    tg = interop.game_from_numpy(np.asarray(jg.a), np.asarray(jg.b),
+                                 np.asarray(jg.c), 0.1, device="cpu")
+
+    def config(mod, cfg):
+        return mod.AsyncPSConfig(
+            adaseg=cfg(**CFG), num_workers=M, rounds=R,
+            latency=mod.ConstantLatency(step_s=(1.0, 1.0, 1.0, 6.0),
+                                        up_s=0.2, down_s=0.1),
+            staleness_bound=2.0, **{k: f(mod) for k, f in kw.items()})
+
+    je = jps.AsyncPSEngine(jg.problem, config(jps, JaxCfg),
+                           rng=jax.random.PRNGKey(4), eval_fn=jg.residual)
+    te = tps.AsyncPSEngine(tg.problem, config(tps, AdaSEGConfig),
+                           rng=jr.PRNGKey(4, device="cpu"),
+                           eval_fn=tg.residual, device="cpu")
+    return je, te
+
+
+def test_async_metric_records_match_jax():
+    """The async engine's records, one for one, as the JAX engine emits
+    them (``engine="async"``): q8, a trimmed mean and outer Nesterov under
+    a straggler. The wall of each admission and its modeled seconds are
+    measured and modeled for each package's own device."""
+    je, te = _async_engines(
+        compressor=lambda mod: mod.StochasticQuantizeCompressor(bits=8),
+        byzantine=lambda mod: mod.SignFlipAttack(fraction=0.25, scale=8.0,
+                                                 seed=1),
+        aggregator=lambda mod: mod.TrimmedMean(beta=0.25),
+        server_opt=lambda mod: mod.ServerNesterov(lr=1.0, beta=0.3))
+    je.run()
+    te.run()
+    want, got = je.metrics.records, te.metrics.records
+    assert [(r["kind"], r["name"]) for r in got] == [
+        (r["kind"], r["name"]) for r in want]
+    names = {r["name"] for r in got}
+    assert {"bytes_up", "bytes_down", "admissions", "eta_spread",
+            "byzantine_workers", "agg_reject_frac", "outer_delta_norm",
+            "idle_frac", "staleness", "admission_wall_s"} <= names
+    for g, w in zip(got, want):
+        gl, wl = dict(g.get("labels", {})), dict(w.get("labels", {}))
+        assert gl.get("engine") == "async"
+        if g["name"] == "admission_wall_s":
+            assert g["value"] > 0.0 and gl.pop("modeled_hbm_s") > 0.0
+            wl.pop("modeled_hbm_s")
+        else:
+            np.testing.assert_allclose(g["value"], w["value"], rtol=1e-5)
+            if g["kind"] == "counter" or g["name"] in ("staleness",
+                                                       "idle_frac"):
+                assert g["value"] == w["value"]
+        assert gl == wl
+
+
+def test_async_perfetto_export_sim_clock(tmp_path):
+    """The τ=2 run's spans on the simulated clock: a valid payload (the
+    JAX package's check agrees), one track per worker beside the server's,
+    and the same simulated intervals as the JAX engine's spans."""
+    je, te = _async_engines()
+    je.run()
+    te.run()
+    path = tmp_path / "async.json"
+    payload = save_trace_events(str(path), te.tracer, clock="sim")
+    validate_trace_events(payload)
+    jobs.validate_trace_events(payload)
+    assert json.loads(path.read_text()) == payload
+    assert set(te.tracer.tracks()) == {"server"} | {
+        f"worker/{m}" for m in range(M)}
+    names = {e["name"] for e in payload["traceEvents"] if e["ph"] == "X"}
+    assert {"admission 0", "uplink r0", "local-compute r0", "final"} <= names
+
+    def sim(tracer):
+        return [(s.name, s.cat, s.track, s.sim_t0, s.sim_t1)
+                for s in tracer.spans if s.sim_t0 is not None]
+
+    assert sim(te.tracer) == sim(je.tracer)
+
+
 # ---------------------------------------------------------------------------
 # Spans and metrics cannot change a result
 # ---------------------------------------------------------------------------

@@ -46,7 +46,8 @@ def test_no_jax_and_no_reference_package_imports(path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "examples/torch_wgan_train.py"])
+                                    "examples/torch_wgan_train.py",
+                                    "examples/torch_ps_simulate.py"])
 def test_chip_smoke_imports_no_jax(script):
     names = set(_imports(REPO / script))
     assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
@@ -69,7 +70,8 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.problems.quadratic, repro_torch.problems.robust, "
             "repro_torch.problems.wgan, repro_torch.obs.metrics, "
             "repro_torch.obs.export, repro_torch.hardware, "
-            "repro_torch.core.metrics; "
+            "repro_torch.core.metrics, repro_torch.ps.latency, "
+            "repro_torch.ps.async_engine; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -177,6 +179,7 @@ DOCTEST_MODULES = [
     "repro_torch.optim.methods", "repro_torch.ps.partition",
     "repro_torch.problems.wgan", "repro_torch.obs.metrics",
     "repro_torch.obs.export", "repro_torch.hardware",
+    "repro_torch.ps.latency", "repro_torch.ps.async_engine",
 ]
 
 
