@@ -7,6 +7,7 @@
     python3 chip_smoke.py --fleet-rows      # only fleet_rows (no result)
     python3 chip_smoke.py --wgan            # only the wgan phase (no result)
     python3 chip_smoke.py --async           # only the async phase (no result)
+    python3 chip_smoke.py --sampled         # only the sampled phase (no result)
     python3 chip_smoke.py --kernels         # only B1-B5's kernel lines
     python3 chip_smoke.py --sync-bits OUT   # the sync wrappers' outputs
     python3 chip_smoke.py --compare-bits A B  # two such files, to the bit
@@ -197,7 +198,31 @@ nothing of JAX. Phases, one JSON line each:
    (``mamba2_ssd``: B13's µs per launch and the chunked version's gradient
    at one layer's shape, each times the step's calls); then mamba2's
    smoke config on the card against the CPU
-   within 1e-4 (``mamba2_small``).
+   within 1e-4 (``mamba2_small``);
+13. sampled (after ``async``) — sampled-client rounds (A13) on the main
+   game, ``benchmarks/bench_fleet.py``'s fleet of 10000 drawing 64 a round
+   (``ClientSampler(64, seed=3)``), K=50. ``full64``: sample == fleet ==
+   64, fused, R=2, bit-identical to ``PSEngine`` without a sampler (whose
+   ms per local step is printed beside the sampled run's). ``fleet10000``:
+   fused, R=5, the residual finite and falling, B1 and B2 launched 500
+   times and B5 10 (as in ``main``), the fleet's init seconds and its
+   transient peak memory, the run's peak, the gather's and the scatter's
+   ms per round (``gather_rows``/``scatter_rows_`` on the store, alone);
+   the same run round by round, in which the store rows of every undrawn
+   worker must be bit-identical before and after each round, saved after
+   round 2 and ending bit-identical to the first run; a restore of that
+   checkpoint finished bit-identical; the reference backend within
+   TOL_TRACE. ``stack``: R=3, q8 with error feedback, 10% faults, a 20%
+   sign-flip attack under a trimmed mean and outer Nesterov, fused (B6,
+   B7, B10, B11 launched, and B5 once a leaf, counted from the engine's
+   start: the outer optimizer's initial anchor over the whole store) and
+   reference within TOL_TRACE, every attacker inside its round's draw,
+   one outer step a round. ``async512``:
+   ``AsyncPSEngine`` on a fleet of 512 drawing 64, ConstantLatency(1,
+   0.2, 0.1), R=5: tau=inf fused; tau=2 fused and reference (host records
+   and the clock equal, residuals within TOL_TRACE), a rerun and a resume
+   from mid-queue bit-identical; Σ local_steps = R·S·K in each.
+   ``python3 chip_smoke.py --sampled`` runs only this phase.
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -355,6 +380,16 @@ ASYNC_LATENCY = dict(step_s=(1.0,) * (M - 1) + (6.0,), up_s=0.2, down_s=0.1)
 ASYNC_TAUS = {"tau0": 0.0, "tau2": 2.0, "tauinf": math.inf}
 ASYNC_KILL = 4
 ASYNC_CELL_R = 3
+# The sampled phase (A13): benchmarks/bench_fleet.py's largest fleet
+# (FLEETS[-1] = 10000) drawing SAMPLE_CAP = 64 a round with its sampler
+# seed 3, on the main game at K; R rounds, a checkpoint after
+# SAMPLED_SAVE; the stacked cell at SAMPLED_STACK_R rounds; sample == fleet
+# = M against no sampler at SAMPLED_FULL_R; and bench_fleet.py's async
+# fleet of 512 (async_sampled) under its ConstantLatency.
+SAMPLED_FLEET, SAMPLED_LANES, SAMPLED_SEED = 10000, 64, 3
+SAMPLED_SAVE, SAMPLED_STACK_R, SAMPLED_FULL_R = 2, 3, 2
+SAMPLED_ASYNC_FLEET = 512
+SAMPLED_LATENCY = dict(step_s=1.0, up_s=0.2, down_s=0.1)
 # The wgan phase: the paper's §5 WGAN-GP (src/repro/problems/wgan.py) at
 # make_wgan_problem's full default width (latent 8, hidden 64, batch 64,
 # gp 1), seed 0, with examples/wgan_train.py's and benchmarks/bench_wgan.py's
@@ -2028,6 +2063,345 @@ def phase_async(results, game, smi):
          seconds=time.perf_counter() - t_phase)
 
 
+def sampled_engine(game, backend, rounds, fleet=SAMPLED_FLEET,
+                   lanes=SAMPLED_LANES, **kw):
+    """The port's PSEngine on the main game with a ClientSampler drawing
+    ``lanes`` of ``fleet`` workers a round (None: no sampler); ``kw`` go
+    to PSConfig."""
+    from repro_torch import random as jr
+    from repro_torch.core import AdaSEGConfig
+    from repro_torch.ps import ClientSampler, PSConfig, PSEngine
+
+    sampler = (None if lanes is None
+               else ClientSampler(sample=lanes, seed=SAMPLED_SEED))
+    cfg = PSConfig(adaseg=AdaSEGConfig(g0=G0, diameter=DIAMETER, k=K),
+                   num_workers=fleet, rounds=rounds, backend=backend,
+                   codec_backend=backend, sampler=sampler, **kw)
+    return PSEngine(game.problem, cfg, rng=jr.PRNGKey(1),
+                    eval_fn=game.residual)
+
+
+def sampled_leaves(eng):
+    """Every tensor of a sync engine's dynamic state: store, EF, srv."""
+    import torch
+
+    from repro_torch.checkpoint.serialize import tree_flatten
+
+    return [x for x in tree_flatten((eng.state, eng._ef, eng._srv))
+            if isinstance(x, torch.Tensor)]
+
+
+def drive_sampled(label, eng, reset=True):
+    """Run a sampled engine on the card: (residuals, seconds, launches per
+    kernel, counts zeroed before unless ``reset`` is False)."""
+    import torch
+
+    if reset:
+        reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zbar = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    res = [r.residual for r in eng.trace.rounds]
+    check(all(v is not None and math.isfinite(v) for v in res),
+          f"sampled/{label}: non-finite residual {res}")
+    check(all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (N,)
+              for v in zbar), f"sampled/{label}: bad output iterate")
+    return res, seconds, counts
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    a, b = list(a), list(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_sampled(results, game, smi):
+    """Sampled-client rounds (A13) on the main path's game through the
+    port's PSEngine and AsyncPSEngine (see SAMPLED_*)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ps import (
+        BernoulliFaults,
+        ServerNesterov,
+        SignFlipAttack,
+        StochasticQuantizeCompressor,
+        TrimmedMean,
+    )
+    from repro_torch.ps.engine import gather_rows, scatter_rows_
+
+    t_phase = time.perf_counter()
+    fleet, lanes, r_all = SAMPLED_FLEET, SAMPLED_LANES, R
+    leaves_n = 2                   # (x, y)
+
+    def launched(label, counts, want):
+        for name, n_want in want.items():
+            got = counts[name]
+            check(got > 0 if n_want is None else got == n_want,
+                  f"sampled/{label}: {name} launched {got} times, wanted "
+                  f"{'some' if n_want is None else n_want}")
+            if results is not None:
+                results[name].setdefault("sampled_launches", {})[label] = got
+
+    # sampled/full64: sample == fleet == M, fused, against no sampler
+    full = sampled_engine(game, "fused", SAMPLED_FULL_R, fleet=M, lanes=M)
+    dense = sampled_engine(game, "fused", SAMPLED_FULL_R, fleet=M,
+                           lanes=None)
+    res_full, _, _ = drive_sampled("full64", full)
+    res_dense, sec_dense, _ = drive_sampled("full64/dense", dense)
+    same = (same_bits(sampled_leaves(full), sampled_leaves(dense))
+            and same_bits(full.z_bar(), dense.z_bar())
+            and res_full == res_dense)
+    check(same, "sampled/full64: sample == fleet differs from no sampler")
+    dense_ms = sec_dense * 1e3 / (SAMPLED_FULL_R * K)
+    emit("sampled", run="full64", backend="fused", fleet=M, sample=M,
+         rounds=SAMPLED_FULL_R, residuals=res_full,
+         bit_identical_to_no_sampler=same,
+         dense_ms_per_local_step=dense_ms)
+    del full, dense
+
+    # sampled/fleet10000: init, a timed fused run and its launches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = sampled_engine(game, "fused", r_all)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    store_bytes = sum(v.numel() * v.element_size()
+                      for v in sampled_leaves(eng))
+    res_f, sec_f, counts = drive_sampled("fleet10000", eng)
+    steps = r_all * K * leaves_n
+    launched("fleet10000", counts, {"adaseg_explore": steps,
+                                    "adaseg_anchor": steps,
+                                    "merge_stacked": r_all * leaves_n})
+    check(res_f[-1] < res_f[0], f"sampled/fleet10000: residual did not "
+          f"fall: {res_f}")
+    draws = eng._draws
+    check(all(r.sampled_workers == draws[i].tolist()
+              and len(r.local_steps) == lanes
+              for i, r in enumerate(eng.trace.rounds)),
+          "sampled/fleet10000: records are not per drawn lane")
+    check(eng.trace.total_steps == r_all * lanes * K,
+          "sampled/fleet10000: local steps are not the sampled work")
+    run_peak = torch.cuda.max_memory_allocated() - base
+    # the gather and the scatter of one round, on the store, alone
+    rows = torch.as_tensor(draws[0], dtype=torch.int64, device="cuda")
+    sub = gather_rows(eng.state, rows)
+    gather_ms = time_ms(lambda: gather_rows(eng.state, rows))
+    scatter_ms = time_ms(lambda: scatter_rows_(eng.state, rows, sub))
+    del sub
+    first = sampled_leaves(eng)
+    first_res = res_f
+    ms_f = sec_f * 1e3 / (r_all * K)
+    emit("sampled", run="fleet10000", backend="fused", fleet=fleet,
+         sample=lanes, rounds=r_all, residuals=res_f,
+         ms_per_local_step=ms_f, dense_m64_ms_per_local_step=dense_ms,
+         round_wall_ms=[r.wall_time_s * 1e3 for r in eng.trace.rounds],
+         gather_ms_per_round=gather_ms, scatter_ms_per_round=scatter_ms,
+         init_s=init_s, init_peak_bytes=init_peak, store_bytes=store_bytes,
+         peak_bytes=run_peak, launches={k: v for k, v in counts.items()
+                                        if v})
+    del eng
+
+    # the same run round by round: undrawn rows frozen, a checkpoint after
+    # SAMPLED_SAVE rounds, and the end bit-identical to the first run
+    step = sampled_engine(game, "fused", r_all)
+    frozen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "sampled.ckpt")
+        for r in range(r_all):
+            before = [v.clone() for v in sampled_leaves(step)]
+            step.step_round()
+            undrawn = torch.ones(fleet, dtype=torch.bool, device="cuda")
+            undrawn[torch.as_tensor(step._draws[r], dtype=torch.int64,
+                                    device="cuda")] = False
+            moved = torch.zeros(fleet, dtype=torch.bool, device="cuda")
+            for a, b in zip(sampled_leaves(step), before):
+                moved |= (a != b).reshape(fleet, -1).any(dim=1)
+            frozen.append(not bool(moved[undrawn].any()))
+            del before
+            if r + 1 == SAMPLED_SAVE:
+                t0 = time.perf_counter()
+                step.save(path)
+                save_s = time.perf_counter() - t0
+                size = Path(path).stat().st_size
+        check(all(frozen), f"sampled/fleet10000: undrawn rows changed in "
+              f"rounds {[r for r, f in enumerate(frozen) if not f]}")
+        rerun = (same_bits(sampled_leaves(step), first)
+                 and [r.residual for r in step.trace.rounds] == first_res)
+        check(rerun, "sampled/fleet10000: the rerun is not bit-identical")
+        del step
+        t0 = time.perf_counter()
+        resumed = sampled_engine(game, "fused", r_all).restore(path)
+        restore_s = time.perf_counter() - t0
+    drive_sampled("fleet10000/resume", resumed)
+    resume = (same_bits(sampled_leaves(resumed), first)
+              and [r.residual for r in resumed.trace.rounds]
+              == first_res[SAMPLED_SAVE:])
+    check(resume, "sampled/fleet10000: the resumed run differs")
+    del resumed
+    emit("sampled_checks", run="fleet10000", backend="fused",
+         undrawn_rows_frozen=frozen, rerun_bit_identical=rerun,
+         saved_round=SAMPLED_SAVE, checkpoint_bytes=size, save_s=save_s,
+         restore_s=restore_s, resume_bit_identical=resume)
+
+    ref = sampled_engine(game, "reference", r_all)
+    res_r, sec_r, _ = drive_sampled("fleet10000/reference", ref)
+    del ref
+    gaps = hold_fused_vs_reference("sampled", "fleet10000", first_res,
+                                   res_r)
+    emit("sampled", run="fleet10000", backend="reference", fleet=fleet,
+         sample=lanes, rounds=r_all, residuals=res_r,
+         ms_per_local_step=sec_r * 1e3 / (r_all * K), rel_gap=gaps)
+    del first
+    torch.cuda.empty_cache()
+
+    # sampled/stack: q8 + EF, faults, a sign-flip attack under a trimmed
+    # mean, and outer Nesterov, fused and reference; counted from the
+    # engine's start, whose outer-optimizer anchor is the one B5 call on
+    # the whole (10000, n) store (a launch a leaf)
+    stack = dict(compressor=StochasticQuantizeCompressor(bits=8),
+                 faults=BernoulliFaults(**CODEC_FAULTS),
+                 byzantine=SignFlipAttack(**ATTACK),
+                 aggregator=TrimmedMean(beta=0.2),
+                 server_opt=ServerNesterov(lr=1.0, beta=0.3))
+    stack_res = {}
+    for backend in ("fused", "reference"):
+        reset_launches()
+        eng = sampled_engine(game, backend, SAMPLED_STACK_R, **stack)
+        res, sec, counts = drive_sampled(f"stack/{backend}", eng,
+                                         reset=False)
+        recs = eng.trace.rounds
+        check(all(set(r.byzantine_workers) <= set(r.sampled_workers)
+                  for r in recs),
+              f"sampled/stack {backend}: an attacker was not drawn")
+        check(all(r.delta_norm is not None and math.isfinite(r.delta_norm)
+                  for r in recs), f"sampled/stack {backend}: bad outer step")
+        check(int(eng._srv[2]) == SAMPLED_STACK_R,
+              f"sampled/stack {backend}: the outer clock is not per round")
+        if backend == "fused":
+            launched("stack", counts, {
+                "adaseg_explore": None, "adaseg_anchor": None,
+                "uplink_stats": None, "quantize_uplink": None,
+                "trimmed_merge_stacked": None, "outer_apply": None,
+                "merge_stacked": leaves_n})
+        stack_res[backend] = res
+        emit("sampled", run="stack", backend=backend, fleet=fleet,
+             sample=lanes, rounds=SAMPLED_STACK_R, residuals=res,
+             ms_per_local_step=sec * 1e3 / (SAMPLED_STACK_R * K),
+             byzantine_workers=[r.byzantine_workers for r in recs],
+             alive=[sum(r.alive) for r in recs],
+             delta_norm=[r.delta_norm for r in recs],
+             **({"launches": {k: v for k, v in counts.items() if v}}
+                if backend == "fused" else {}))
+        del eng
+        torch.cuda.empty_cache()
+    hold_fused_vs_reference("sampled", "stack", stack_res["fused"],
+                            stack_res["reference"])
+
+    # sampled/async512: bench_fleet.py's async fleet
+    def async_sampled(tau, backend="fused"):
+        from repro_torch import random as jr
+        from repro_torch.core import AdaSEGConfig
+        from repro_torch.ps import (
+            AsyncPSConfig,
+            AsyncPSEngine,
+            ClientSampler,
+            ConstantLatency,
+        )
+
+        cfg = AsyncPSConfig(
+            adaseg=AdaSEGConfig(g0=G0, diameter=DIAMETER, k=K),
+            num_workers=SAMPLED_ASYNC_FLEET, rounds=r_all, backend=backend,
+            codec_backend=backend,
+            sampler=ClientSampler(sample=lanes, seed=SAMPLED_SEED),
+            latency=ConstantLatency(**SAMPLED_LATENCY), staleness_bound=tau)
+        return AsyncPSEngine(game.problem, cfg, rng=jr.PRNGKey(1),
+                             eval_fn=game.residual)
+
+    def drive_async(label, eng, until_admissions=None, whole=True):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zbar = eng.run(until_admissions=until_admissions)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches()
+        if until_admissions is None:
+            res = [r.residual for r in eng.trace.rounds]
+            check(eng.done and all(v is not None and math.isfinite(v)
+                                   for v in res),
+                  f"sampled/{label}: unfinished or non-finite {res}")
+            check(all(bool(torch.isfinite(v).all()) for v in zbar),
+                  f"sampled/{label}: bad output")
+            check(not whole or eng.trace.total_steps == r_all * lanes * K,
+                  f"sampled/{label}: local steps are not R*S*K")
+        return seconds, counts
+
+    for label, tau in (("tauinf", math.inf), ("tau2", 2.0)):
+        e_f = async_sampled(tau)
+        sec, counts = drive_async(f"async512/{label}", e_f)
+        launched(f"async512/{label}", counts,
+                 {"adaseg_explore": None, "adaseg_anchor": None})
+        emit_async(f"sampled/async512/{label}", tau, "fused", e_f, sec,
+                   counts, fleet=SAMPLED_ASYNC_FLEET, sample=lanes,
+                   local_steps=e_f.trace.total_steps)
+        if label == "tauinf":
+            del e_f
+            continue
+        first_async = async_leaves(e_f)
+        res_f = [r.residual for r in e_f.trace.rounds]
+        e_r = async_sampled(tau, "reference")
+        sec_r, counts_r = drive_async(f"async512/{label}/reference", e_r)
+        check(async_host(e_r) == async_host(e_f)
+              and e_r.sim_time == e_f.sim_time,
+              "sampled/async512: host records differ between the backends")
+        gaps = hold_fused_vs_reference(
+            "sampled", "async512", res_f,
+            [r.residual for r in e_r.trace.rounds])
+        emit_async(f"sampled/async512/{label}", tau, "reference", e_r,
+                   sec_r, counts_r, rel_gap=gaps)
+        del e_r
+        again = async_sampled(tau)
+        drive_async(f"async512/{label}/rerun", again)
+        rerun = (same_bits(async_leaves(again), first_async)
+                 and async_host(again) == async_host(e_f)
+                 and again.sim_time == e_f.sim_time
+                 and [r.residual for r in again.trace.rounds] == res_f)
+        check(rerun, "sampled/async512: the rerun is not bit-identical")
+        del again
+        kill = max(1, e_f.n_admissions // 2)
+        part = async_sampled(tau)
+        drive_async(f"async512/{label}/part", part, until_admissions=kill)
+        check(not part.done, "sampled/async512: the kill point is not "
+              "mid-queue")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "async.ckpt")
+            part.save(path)
+            resumed = async_sampled(tau).restore(path)
+        drive_async(f"async512/{label}/resume", resumed, whole=False)
+        resume = (same_bits(async_leaves(resumed), first_async)
+                  and async_host(resumed) == async_host(e_f)[kill:]
+                  and [r.residual for r in resumed.trace.rounds]
+                  == res_f[kill:])
+        check(resume, "sampled/async512: the resumed run differs")
+        emit("sampled_checks", run=f"async512/{label}", backend="fused",
+             rerun_bit_identical=rerun, kill_at_admission=kill,
+             resume_bit_identical=resume)
+        del part, resumed, e_f
+    torch.cuda.empty_cache()
+    emit("sampled_phase", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+
+
 def zoo_methods(g0, diameter, lr, k=K):
     """LocalAdaSEG's config and the five zoo workers, by row name."""
     from repro_torch.core import AdaSEGConfig
@@ -3223,6 +3597,13 @@ def main() -> int:
         phase_async(None, make_bilinear_game(jr.PRNGKey(0), n=N, sigma=0.1),
                     smi)
         return 0
+    if sys.argv[1:] == ["--sampled"]:
+        from repro_torch import random as jr
+        from repro_torch.problems import make_bilinear_game
+
+        phase_sampled(None, make_bilinear_game(jr.PRNGKey(0), n=N,
+                                               sigma=0.1), smi)
+        return 0
     results = phase_kernels()
     phase_codec_kernels(results)
     phase_merge_shapes()
@@ -3235,6 +3616,7 @@ def main() -> int:
     phase_codec(results, game)
     phase_robust(results, game)
     phase_async(results, game, smi)
+    phase_sampled(results, game, smi)
     phase_zoo(game, smi)
     del game                       # free the 1 GiB coupling matrix
     phase_wgan(smi)

@@ -4,8 +4,8 @@ schedules and fault policies, hostile fleets (Byzantine attacks, DP
 uplinks, robust merges), the server-side outer optimizer, checkpoints, and
 Dirichlet-heterogeneous workers (``partition``), and the event-driven
 asynchronous engine over simulated time (``AsyncPSEngine`` with the
-``latency`` models). Client sampling and the sharded path are ported in
-later slices."""
+``latency`` models), and sampled-client rounds in both engines
+(``ClientSampler``). The sharded path is ported in a later slice."""
 from ..core.adaseg import AdaSEGConfig
 from ..core.worker import AdaSEGWorker, LocalWorker
 from .async_engine import AsyncPSConfig, AsyncPSEngine
@@ -21,6 +21,7 @@ from .engine import (
     PSConfig,
     PSEngine,
     RobustPipeline,
+    make_sampled_chunk,
     make_serial_chunk,
     make_sync_stacked,
     resolve_robust,
@@ -54,6 +55,7 @@ from .robust import (
     WeightedMean,
     ZeroAttack,
 )
+from .sampler import ClientSampler
 from .schedule import (
     ElasticSchedule,
     FixedSchedule,
@@ -78,6 +80,7 @@ __all__ = [
     "AsyncPSEngine",
     "BernoulliFaults",
     "ByzantinePolicy",
+    "ClientSampler",
     "CollusionAttack",
     "ConstantLatency",
     "CoordinateMedian",
@@ -123,6 +126,7 @@ __all__ = [
     "heterogeneous_robust",
     "heterogeneous_wgan",
     "heterogenize",
+    "make_sampled_chunk",
     "make_serial_chunk",
     "make_sync_stacked",
     "mixture_sampler",

@@ -47,6 +47,13 @@ worker id. Every host-side record (simulated times, staleness, aliveness,
 local steps, bytes, idle fractions, the admission count) therefore equals
 the JAX engine's exactly, whatever the f32 numerics do.
 
+Under a :class:`~repro_torch.ps.sampler.ClientSampler` a worker takes
+part only in the rounds it is drawn for: entering an undrawn round costs
+no simulated time and makes no event, and its progress moves through the
+skip so that the staleness gate never waits on it. Phases still run on
+the whole stacked fleet, masked, and a sampled run never takes the
+lockstep chunk.
+
 The outer optimizer's anchor starts at the clean sync's own merge of the
 initial payloads (``engine._initial_anchor``, ROADMAP C6(b)), as the
 port's ``PSEngine`` does, so that τ=0 stays bit-identical to it.
@@ -176,10 +183,6 @@ class AsyncPSEngine:
         self.device = resolve_device(device)
         if config.staleness_bound < 0:
             raise ValueError("staleness_bound must be >= 0")
-        if config.sampler is not None:
-            raise NotImplementedError(
-                "AsyncPSConfig.sampler (client sampling) is ported with "
-                "ROADMAP A13")
         # Spans carry the simulated clock beside host wall time; they and
         # the metrics are recorded on the host from values already there,
         # so they cannot change a result.
@@ -217,9 +220,16 @@ class AsyncPSEngine:
                 f"engine needs ({r}, {m})"
             )
         self._lat = lat
+        # Sampled-client rounds: an (R, M) participation table. A round the
+        # worker is not drawn for is skipped at zero simulated cost (no
+        # send, receive, steps or reboot), its progress advanced through
+        # the skip so the staleness gate never waits on it.
+        self.sampler = config.sampler
+        self._sampled = (None if self.sampler is None
+                         else self.sampler.participation(m, r))
         # Hostile fleet: attacks corrupt uplinks when they are stored (per
         # the sender's own round); the robust merge runs at admission over
-        # the whole last-heard table.
+        # the whole last-heard table, so it is resolved at the fleet width.
         self.aggregator = config.aggregator or WeightedMean()
         self.byzantine = config.byzantine
         self.dp = config.dp
@@ -297,6 +307,9 @@ class AsyncPSEngine:
             "backend": getattr(self.worker, "backend", None),
             "codec_backend": self.codec_backend,
             "execution": "event-driven",
+            **({"sampler": self.sampler.name,
+                "sample": self.sampler.sample}
+               if self.sampler is not None else {}),
             **({"byzantine": self.byzantine.name}
                if self.byzantine is not None else {}),
             **({"server_opt": self.server_opt.name}
@@ -310,11 +323,13 @@ class AsyncPSEngine:
         self._rng_cache: dict[int, torch.Tensor] = {}
         self._c_rng_cache: dict[int, torch.Tensor] = {}
         # A lockstep admission (the whole fleet, one round) runs the
-        # synchronous engine's round chunk; only the identity, fault-free
-        # configuration can take it (a faulty PSEngine masks its sync, and
-        # async compression is per payload).
+        # synchronous engine's round chunk; only the identity, fault-free,
+        # unsampled configuration can take it (a faulty PSEngine masks its
+        # sync, async compression is per payload, and a sampled PSEngine
+        # runs another chunk).
         self._lockstep_ok = (isinstance(self.faults, NoFaults)
-                             and self.compressor.is_identity)
+                             and self.compressor.is_identity
+                             and self.sampler is None)
         self._lockstep_chunk = (
             make_serial_chunk(problem, self.worker, self.compressor, m,
                               self._k_pad, None, no_faults=True,
@@ -489,7 +504,15 @@ class AsyncPSEngine:
 
     def _enter_round(self, m: int, r: int, t: float) -> None:
         """Worker ``m`` enters round ``r`` at simulated time ``t``: send the
-        uplink (alive), burn a reboot (dead), or finish (r == rounds)."""
+        uplink (alive), burn a reboot (dead), skip (not drawn), or finish
+        (r == rounds)."""
+        if self._sampled is not None:
+            # undrawn rounds cost nothing; progress advances through each
+            # skip as if its uplink had arrived, so that the staleness gate
+            # never waits on a round that will never be sent
+            while r < self.config.rounds and not self._sampled[r, m]:
+                self._progress[m] = max(int(self._progress[m]), r)
+                r += 1
         if r >= self.config.rounds:
             self._status[m] = _DONE
             self._done_at[m] = t

@@ -16,8 +16,15 @@ whole stacked fleet. The sync is reference tree math, or under
 (``codec_uplink_stacked``), the merge kernels (plain and robust) and the
 outer-step kernel. Dead workers run no steps, send nothing (their
 error-feedback residual stays frozen), and keep their stale anchor; the
-Line-7 weights are renormalised over the survivors. Client sampling and
-the sharded path raise ``NotImplementedError`` until their slice.
+Line-7 weights are renormalised over the survivors. The sharded path
+raises ``NotImplementedError`` until its slice.
+
+Under a :class:`~repro_torch.ps.sampler.ClientSampler` (sampled-client
+rounds) the fleet of N workers is a store of ``(N, ...)`` rows; each round
+gathers the S drawn rows, runs the same sync and local steps on them
+(``make_sampled_chunk`` shares that code with ``make_serial_chunk``), and
+writes them back in place. Undrawn workers keep their state, residuals
+and stale anchor untouched.
 
 With the same seed the engine draws the same keys as the JAX package
 (``derive_rngs`` → ``split(rng0, R)`` per round → ``split(rng_round, K·M)``
@@ -49,7 +56,12 @@ import torch
 
 from .. import random as jr
 from .._device import resolve_device
-from ..checkpoint.serialize import load_pytree, save_pytree
+from ..checkpoint.serialize import (
+    load_pytree,
+    save_pytree,
+    tree_flatten,
+    tree_unflatten,
+)
 from ..core.adaseg import AdaSEGConfig, weighted_worker_average
 from ..core.tree import per_worker, tree_map, tree_zeros_like
 from ..core.types import MinimaxProblem
@@ -64,6 +76,7 @@ from .compress import (
 )
 from .faults import FaultPolicy, NoFaults
 from .robust import ByzantinePolicy, DPUplink, RobustAggregator, WeightedMean
+from .sampler import ClientSampler
 from .schedule import UniformSchedule, WorkerSchedule
 from .server_opt import NoServerOpt, ServerOptimizer, resolve_server_opt
 from .trace import RoundRecord, TraceRecorder
@@ -86,7 +99,8 @@ class PSConfig:
     weights applied server-side, and all None (or a zero-budget aggregator)
     runs the historical path. ``server_opt`` is the outer optimizer over
     round deltas (None or ``NoServerOpt`` is the historical Line-7
-    broadcast). ``sampler`` is ported in a later slice and must stay None.
+    broadcast). ``sampler`` draws ``sampler.sample`` of the
+    ``num_workers`` fleet workers a round (None is full participation).
 
     Examples
     --------
@@ -106,7 +120,7 @@ class PSConfig:
     faults: FaultPolicy | None = None        # default: no faults
     backend: str = "reference"               # AdaSEG step backend
     codec_backend: str = "reference"         # sync merge: reference | fused
-    sampler: Any = None
+    sampler: ClientSampler | None = None
     byzantine: ByzantinePolicy | None = None  # adversarial uplinks
     aggregator: RobustAggregator | None = None  # robust server merge
     dp: DPUplink | None = None               # l2 clip + Gaussian noise
@@ -116,7 +130,7 @@ class PSConfig:
 @dataclasses.dataclass(frozen=True)
 class RobustPipeline:
     """The resolved hostile-fleet configuration: the attack policy, the
-    static merge spec at the fleet width, and the DP transform. None
+    static merge spec at the lane width, and the DP transform. None
     anywhere means that layer is off; the engine builds a pipeline only
     when at least one layer is active."""
 
@@ -126,8 +140,9 @@ class RobustPipeline:
 
 
 def resolve_robust(config: PSConfig, lanes: int) -> RobustPipeline | None:
-    """Resolve a config's hostile-fleet fields at fleet width ``lanes``.
-    Returns None (the exact historical path) when there is no attack, no
+    """Resolve a config's hostile-fleet fields at lane width ``lanes``
+    (the sampled width under a ``ClientSampler``, else the fleet). Returns
+    None (the exact historical path) when there is no attack, no
     DP, and the aggregator degrades (``spec(lanes) is None``).
 
     >>> from repro_torch.ps.robust import TrimmedMean
@@ -169,14 +184,6 @@ def _resolve_schedule(config: PSConfig) -> WorkerSchedule:
         "a generic worker has no communication interval of its own — "
         "give PSConfig a schedule= or local_k="
     )
-
-
-def _check_slice(config: PSConfig, compressor) -> None:
-    """Refuse the features this slice has not ported yet."""
-    if config.sampler is not None:
-        raise NotImplementedError(
-            "PSConfig.sampler is ported in a later slice")
-    check_codec_backend(config.codec_backend, compressor)
 
 
 def _line7_weights(sw, alive_r):
@@ -382,6 +389,58 @@ def make_sync_stacked(worker: LocalWorker, compressor: SyncCompressor,
     return sync_stacked
 
 
+def _make_round_core(problem, worker, compressor, lanes, k_pad, no_faults,
+                     codec_backend, dev, robust, server):
+    """One round's sync and its K_m^r masked local steps on a stack of
+    ``lanes`` workers: ``core(state, ef, srv, rng_round, steps_r, alive_r,
+    byz_r) -> (state, ef, srv, telem)``. Both chunks run it, so the
+    sampled round on its gathered lanes is the serial round's arithmetic
+    (and ``sample == fleet`` gives the serial chunk's numbers)."""
+    sync_stacked = make_sync_stacked(worker, compressor, lanes, codec_backend,
+                                     robust, server)
+
+    def core(state, ef, srv, rng_round, steps_r, alive_r, byz_r):
+        alive_t = None if no_faults else torch.as_tensor(alive_r, device=dev)
+        if robust is not None:
+            # the robust uplink keys its attacks and noise off the codec
+            # key, so it is derived whatever the codec
+            args = (state, ef, alive_t, jr.fold_in(rng_round, 7),
+                    torch.as_tensor(byz_r, device=dev))
+        else:
+            args = (state, ef, alive_t, None if compressor.is_identity
+                    else jr.fold_in(rng_round, 7))
+        del state                       # the pre-sync state can go with args
+        telem = None
+        if server is not None:
+            state, ef, srv, telem = sync_stacked(*args, srv)
+        else:
+            state, ef = sync_stacked(*args)
+        del args
+        # Line 3–4: K_m^r masked local steps (no mask when all run).
+        step_rngs = jr.split(rng_round, k_pad * lanes).reshape(
+            k_pad, lanes, 2)
+        for i in range(k_pad):
+            run = steps_r > i
+            enabled = None if run.all() else torch.as_tensor(run, device=dev)
+            state = worker.step(problem, state, step_rngs[i], enabled=enabled)
+        return state, ef, srv, telem
+
+    return core
+
+
+def _round_stats(worker, eval_fn, lanes_state, fleet_state, counts_r, dev):
+    """η ``[min, max, mean]`` over the round's lanes, and the residual of
+    the Line-14 output over the whole fleet (NaN without ``eval_fn``)."""
+    eta_end = worker.eta(lanes_state)                          # (lanes,)
+    eta_stats = torch.stack([eta_end.min(), eta_end.max(), eta_end.mean()])
+    if eval_fn is None:
+        return eta_stats, torch.tensor(float("nan"), device=dev)
+    counts = counts_r if counts_r.sum() > 0 else np.ones_like(counts_r)
+    res = eval_fn(weighted_worker_average(
+        worker.output(fleet_state), torch.as_tensor(counts, device=dev)))
+    return eta_stats, res.to(torch.float32)
+
+
 def make_serial_chunk(
     problem: MinimaxProblem,
     worker: LocalWorker,
@@ -411,45 +470,9 @@ def make_serial_chunk(
     ``[eff_lr, ‖Δ‖]`` (None without a server), all left on the device so a
     chunk transfers O(rounds) values once. ``no_faults`` is the static "no
     masking" case: ``alive`` is then ignored."""
-    m = num_workers
     dev = torch.device(device)
-    sync_stacked = make_sync_stacked(worker, compressor, m, codec_backend,
-                                     robust, server)
-
-    def round_body(state, ef, srv, rng_round, steps_r, alive_r, byz_r,
-                   counts_r):
-        alive_t = None if no_faults else torch.as_tensor(alive_r, device=dev)
-        if robust is not None:
-            # the robust uplink keys its attacks and noise off the codec
-            # key, so it is derived whatever the codec
-            args = (state, ef, alive_t, jr.fold_in(rng_round, 7),
-                    torch.as_tensor(byz_r, device=dev))
-        else:
-            args = (state, ef, alive_t, None if compressor.is_identity
-                    else jr.fold_in(rng_round, 7))
-        telem = None
-        if server is not None:
-            state, ef, srv, telem = sync_stacked(*args, srv)
-        else:
-            state, ef = sync_stacked(*args)
-        del args                        # the pre-sync state can go now
-        # Line 3–4: K_m^r masked local steps (no mask when all run).
-        step_rngs = jr.split(rng_round, k_pad * m).reshape(k_pad, m, 2)
-        for i in range(k_pad):
-            run = steps_r > i
-            enabled = None if run.all() else torch.as_tensor(run, device=dev)
-            state = worker.step(problem, state, step_rngs[i], enabled=enabled)
-
-        eta_end = worker.eta(state)                           # (M,)
-        eta_stats = torch.stack([eta_end.min(), eta_end.max(),
-                                 eta_end.mean()])
-        if eval_fn is None:
-            res = torch.tensor(float("nan"), device=dev)
-        else:
-            counts = counts_r if counts_r.sum() > 0 else np.ones_like(counts_r)
-            res = eval_fn(weighted_worker_average(
-                worker.output(state), torch.as_tensor(counts, device=dev)))
-        return state, ef, srv, eta_stats, res.to(torch.float32), telem
+    core = _make_round_core(problem, worker, compressor, num_workers, k_pad,
+                            no_faults, codec_backend, dev, robust, server)
 
     def chunk(state, ef, round_rngs, steps, alive, counts_cum, byz=None,
               srv=None):
@@ -460,15 +483,119 @@ def make_serial_chunk(
         held = [state]
         del state
         for c in range(round_rngs.shape[0]):
-            state, ef, srv, eta_stats, res, telem = round_body(
+            state, ef, srv, telem = core(
                 held.pop(), ef, srv, round_rngs[c], steps[c], alive[c],
-                None if byz is None else byz[c], counts_cum[c])
+                None if byz is None else byz[c])
             held.append(state)
+            eta_stats, res = _round_stats(worker, eval_fn, state, state,
+                                          counts_cum[c], dev)
             del state
             etas.append(eta_stats)
             ress.append(res)
             outer.append(telem)
         return (held.pop(), ef, torch.stack(etas), torch.stack(ress), srv,
+                torch.stack(outer) if server is not None else None)
+
+    return chunk
+
+
+def gather_rows(tree, rows: torch.Tensor):
+    """The ``rows`` (int64, on the tree's device) of every worker-stacked
+    leaf of ``tree``, as a new contiguous tree of the same structure.
+
+    >>> store = (torch.arange(6.0).reshape(3, 2), torch.arange(3))
+    >>> rows = torch.tensor([0, 2])
+    >>> sub = gather_rows(store, rows)
+    >>> sub[0].tolist(), sub[1].tolist()
+    ([[0.0, 1.0], [4.0, 5.0]], [0, 2])
+    >>> scatter_rows_(store, rows, (-sub[0], sub[1]))
+    >>> store[0].tolist()
+    [[-0.0, -1.0], [2.0, 3.0], [-4.0, -5.0]]
+    """
+    return tree_unflatten(tree, iter(
+        [leaf.index_select(0, rows) for leaf in tree_flatten(tree)]))
+
+
+def scatter_rows_(tree, rows: torch.Tensor, sub) -> None:
+    """Write ``sub``'s leaves into the ``rows`` of ``tree``'s, in place.
+    ``rows`` must be unique (a draw without replacement is)."""
+    for dst, src in zip(tree_flatten(tree), tree_flatten(sub)):
+        dst.index_copy_(0, rows, src)
+
+
+def _distinct_leaves(tree):
+    """``tree`` with every leaf that shares its storage with an earlier one
+    cloned, so that writing rows of one leaf in place cannot change
+    another (an optimizer's init may hand two fields one zeros tensor)."""
+    seen = set()
+    leaves = []
+    for leaf in tree_flatten(tree):
+        ptr = leaf.untyped_storage().data_ptr()
+        leaves.append(leaf.clone() if ptr in seen else leaf)
+        seen.add(ptr)
+    return tree_unflatten(tree, iter(leaves))
+
+
+def make_sampled_chunk(
+    problem: MinimaxProblem,
+    worker: LocalWorker,
+    compressor: SyncCompressor,
+    sample: int,
+    k_pad: int,
+    eval_fn,
+    no_faults: bool,
+    codec_backend: str = "reference",
+    device="cuda",
+    robust: RobustPipeline | None = None,
+    server: ServerOptimizer | None = None,
+):
+    """Sampled-client round chunk (partial participation). The fleet
+    store stays ``(N, ...)``; each round gathers the S = ``sample`` drawn
+    workers' rows of the state and of the error-feedback residuals, runs
+    the serial chunk's sync and masked local steps on that ``(S, ...)``
+    stack (the codec key ``fold_in(rng_round, 7)``, the step keys
+    ``split(rng_round, k_pad·S)``), and writes the rows back into the
+    store in place. Workers not drawn keep their η accumulators, residuals
+    and stale anchor as if the round never reached them.
+
+    ``chunk(store, ef, idx, round_rngs, steps, alive, counts_cum,
+    byz=None, srv=None)`` returns what :func:`make_serial_chunk`'s does,
+    with ``idx`` the ``(C, S)`` draws (sorted, unique), ``steps``,
+    ``alive`` and ``byz`` the ``(C, S)`` lane tables, and ``counts_cum``
+    fleet-shaped ``(C, N)`` so that the residual is the Line-14 output's
+    over everyone who has taken part. ``eta_stats`` is over the drawn
+    lanes. ``store`` and ``ef`` are the same objects on return, updated in
+    place (their leaves must not share storage). Under a ``server`` ONE
+    global ``srv`` runs through the rounds: the outer step sees the merge
+    of the drawn lanes, and only they receive the post-step anchor.
+
+    The gathered ``worker_id`` keeps the fleet ids, so a heterogeneous
+    oracle keyed by it draws for a lane as for its fleet worker."""
+    dev = torch.device(device)
+    core = _make_round_core(problem, worker, compressor, sample, k_pad,
+                            no_faults, codec_backend, dev, robust, server)
+    has_ef = compressor.error_feedback
+
+    def chunk(store, ef, idx, round_rngs, steps, alive, counts_cum,
+              byz=None, srv=None):
+        etas, ress, outer = [], [], []
+        for c in range(round_rngs.shape[0]):
+            rows = torch.as_tensor(idx[c], dtype=torch.int64, device=dev)
+            sub, sub_ef, srv, telem = core(
+                gather_rows(store, rows),
+                gather_rows(ef, rows) if has_ef else ef, srv,
+                round_rngs[c], steps[c], alive[c],
+                None if byz is None else byz[c])
+            scatter_rows_(store, rows, sub)
+            if has_ef:
+                scatter_rows_(ef, rows, sub_ef)
+            eta_stats, res = _round_stats(worker, eval_fn, sub, store,
+                                          counts_cum[c], dev)
+            del sub, sub_ef
+            etas.append(eta_stats)
+            ress.append(res)
+            outer.append(telem)
+        return (store, ef, torch.stack(etas), torch.stack(ress), srv,
                 torch.stack(outer) if server is not None else None)
 
     return chunk
@@ -523,14 +650,17 @@ class PSEngine:
         self.schedule = _resolve_schedule(config)
         self.compressor = config.compressor or IdentityCompressor()
         self.faults = config.faults or NoFaults()
-        _check_slice(config, self.compressor)
+        check_codec_backend(config.codec_backend, self.compressor)
         m, r = config.num_workers, config.rounds
+        self.sampler = config.sampler
         # Hostile fleet and outer optimizer, resolved as the JAX engine does:
-        # None for the historical path (zero budget, NoServerOpt).
+        # None for the historical path (zero budget, NoServerOpt). The merge
+        # is resolved at the lane width: the sampled width under a sampler.
         self.aggregator = config.aggregator or WeightedMean()
         self.byzantine = config.byzantine
         self.dp = config.dp
-        self._robust = resolve_robust(config, m)
+        self._robust = resolve_robust(
+            config, self.sampler.sample if self.sampler is not None else m)
         self._byz = (np.asarray(self.byzantine.attacked(m, r), dtype=bool)
                      if self.byzantine is not None
                      else np.zeros((r, m), dtype=bool))
@@ -554,6 +684,23 @@ class PSEngine:
                 f"schedule emits step counts above its max_steps={self._k_pad}"
             )
         self._eff_steps = np.where(self._alive, self._ks, 0)  # (R, M)
+        # Sampled-client rounds: the fleet tables gathered onto the S drawn
+        # lanes of each round; the realised steps go back to fleet shape,
+        # so z̄ and counts_cum stay Line 14 over the whole fleet.
+        if self.sampler is not None:
+            self._draws = self.sampler.draws(m, r)            # (R, S)
+            self._alive_lane = np.take_along_axis(self._alive, self._draws,
+                                                  axis=1)
+            self._eff_lane = np.where(
+                self._alive_lane,
+                np.take_along_axis(self._ks, self._draws, axis=1), 0)
+            self._byz_lane = np.take_along_axis(self._byz, self._draws,
+                                                axis=1)
+            self._eff_steps = np.zeros((r, m), dtype=self._eff_lane.dtype)
+            np.put_along_axis(self._eff_steps, self._draws, self._eff_lane,
+                              axis=1)                         # (R, N)
+        else:
+            self._draws = None
         self._counts_cum = np.cumsum(
             self._eff_steps, axis=0
         ).astype(np.float32)
@@ -570,6 +717,9 @@ class PSEngine:
         self._ef: PyTree = (
             tree_zeros_like(self.worker.sync_payload(self._state))
             if self.compressor.error_feedback else ())
+        if self.sampler is not None:
+            # the sampled chunk writes rows of the store in place
+            self._state = _distinct_leaves(self._state)
 
         # The outer optimizer's (z_server, moments, round count); the anchor
         # starts at the fleet mean of the initial payloads.
@@ -595,6 +745,9 @@ class PSEngine:
             "backend": getattr(self.worker, "backend", None),
             "codec_backend": self.codec_backend,
             "execution": "serial",
+            **({"sampler": self.sampler.name,
+                "sample": self.sampler.sample}
+               if self.sampler is not None else {}),
             **({"byzantine": self.byzantine.name}
                if self.byzantine is not None else {}),
             **({"aggregator": self.aggregator.name,
@@ -603,11 +756,16 @@ class PSEngine:
             **({"server_opt": self.server_opt.name}
                if self._server is not None else {}),
         })
-        self._chunk_fn = make_serial_chunk(
-            problem, self.worker, self.compressor, m, self._k_pad, eval_fn,
-            self._no_faults, self.codec_backend, self.device, self._robust,
-            self._server,
-        )
+        if self.sampler is not None:
+            self._chunk_fn = make_sampled_chunk(
+                problem, self.worker, self.compressor, self.sampler.sample,
+                self._k_pad, eval_fn, self._no_faults, self.codec_backend,
+                self.device, self._robust, self._server)
+        else:
+            self._chunk_fn = make_serial_chunk(
+                problem, self.worker, self.compressor, m, self._k_pad,
+                eval_fn, self._no_faults, self.codec_backend, self.device,
+                self._robust, self._server)
 
     # ------------------------------------------------------------------
     # Driving, output, telemetry
@@ -623,12 +781,21 @@ class PSEngine:
 
     def _run_chunk(self, r0: int, r1: int) -> None:
         sl = slice(r0, r1)
+        sampled = self._draws is not None
+        if sampled:
+            lead = (self._draws[sl],)
+            steps_tab, alive_tab, byz_tab = (self._eff_lane, self._alive_lane,
+                                             self._byz_lane)
+        else:
+            lead = ()
+            steps_tab, alive_tab, byz_tab = (self._eff_steps, self._alive,
+                                             self._byz)
         with self.tracer.span(f"chunk [{r0},{r1})", cat="chunk",
                               rounds=r1 - r0) as chunk_sp:
             state, ef, etas, ress, srv, outer = self._chunk_fn(
-                self._take_state(), self._ef, self._round_rngs[sl],
-                self._eff_steps[sl], self._alive[sl], self._counts_cum[sl],
-                byz=self._byz[sl] if self._robust is not None else None,
+                self._take_state(), self._ef, *lead, self._round_rngs[sl],
+                steps_tab[sl], alive_tab[sl], self._counts_cum[sl],
+                byz=byz_tab[sl] if self._robust is not None else None,
                 srv=self._srv)
             # The host copies wait for the device, so the span times the
             # chunk's device work too.
@@ -645,8 +812,8 @@ class PSEngine:
             self.compressor.codec_spec, self._dense_bytes,
             workers=self.config.num_workers, backend=self.codec_backend)
         for i, r in enumerate(range(r0, r1)):
-            alive = self._alive[r]
-            steps_row = self._eff_steps[r]
+            # per lane under a sampler: the drawn workers, ascending ids
+            alive, steps_row = alive_tab[r], steps_tab[r]
             n_alive = int(alive.sum())
             eff = int(steps_row.sum())
             res = float(ress[i])
@@ -663,8 +830,12 @@ class PSEngine:
                 wall_time_s=per_round_wall,
                 steps_per_sec=eff / per_round_wall if per_round_wall > 0
                 else None,
-                byzantine_workers=(np.nonzero(self._byz[r])[0].tolist()
-                                   if self.byzantine is not None else None),
+                sampled_workers=(self._draws[r].tolist() if sampled
+                                 else None),
+                byzantine_workers=(
+                    None if self.byzantine is None
+                    else self._draws[r][self._byz_lane[r]].tolist()
+                    if sampled else np.nonzero(self._byz[r])[0].tolist()),
                 outer_lr=None if outer is None else float(outer[i, 0]),
                 delta_norm=None if outer is None else float(outer[i, 1]),
             )
@@ -757,6 +928,11 @@ class PSEngine:
             "rng0": self._rng0.cpu().numpy().astype(np.uint32),
             "worker_fp": np.uint32(self.worker.fingerprint),
         }
+        if self.sampler is not None:
+            # present only for sampled runs, so a sampled checkpoint cannot
+            # restore into a full-participation engine (or the reverse):
+            # the leaf structure itself differs
+            tree["sampler_fp"] = np.uint32(self.sampler.fingerprint)
         if self._robust is not None:
             # present only for robust runs: the merge semantics (and the
             # threat model the EF memory accumulated under) must match
@@ -781,9 +957,10 @@ class PSEngine:
         """Resume mid-run: policies and key streams are re-derived from the
         config, so only the fleet state, the error-feedback residuals, the
         outer optimizer's state and the round counter come from disk.
-        Refuses a checkpoint from another seed, optimizer, robust aggregator
-        or outer optimizer. The trace keeps the rounds before the restored
-        one."""
+        Refuses a checkpoint from another seed, optimizer, client sampler,
+        robust aggregator or outer optimizer, and a sampled checkpoint in
+        a full-participation engine or the reverse. The trace keeps the
+        rounds before the restored one."""
         try:
             loaded = load_pytree(path, self._ckpt_tree())
         except ValueError as e:
@@ -798,6 +975,11 @@ class PSEngine:
                               self._rng0.cpu().numpy().astype(np.uint32)):
             raise ValueError(
                 "checkpoint was written by a run with a different seed")
+        if (self.sampler is not None and int(loaded["sampler_fp"])
+                != self.sampler.fingerprint):
+            raise ValueError(
+                "checkpoint was written by a run with a different client "
+                "sampler (the participation tables would diverge)")
         if (self._robust is not None and int(loaded["aggregator_fp"])
                 != self.aggregator.fingerprint):
             raise ValueError(

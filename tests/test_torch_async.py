@@ -428,13 +428,23 @@ def test_tracing_off_is_bit_identical(games):
 
 
 def test_refusals(games):
+    """A negative staleness bound is refused by both packages; a sampler,
+    once refused here, now builds a sampled engine that runs to its end,
+    with the JAX engine's host records (``test_torch_sampler.py`` holds
+    the sampled path in full)."""
     jg, tg = games
     with pytest.raises(ValueError, match="staleness_bound"):
         _jax_engine(jg, "tau2", staleness_bound=-1.0)
     with pytest.raises(ValueError, match="staleness_bound"):
         _port_engine(tg, "tau2", staleness_bound=-1.0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        _port_engine(tg, "tau2", sampler=object())
+    te = _port_engine(tg, "tau2", sampler=tps.ClientSampler(sample=2,
+                                                            seed=1))
+    je = _jax_engine(jg, "tau2", sampler=jps.ClientSampler(sample=2, seed=1))
+    te.run()
+    je.run()
+    assert te.done and te.trace.meta["sample"] == 2
+    assert te.trace.total_steps == R * 2 * K
+    assert _host(te) == _host(je) and te.sim_time == je.sim_time
 
 
 def test_default_device_is_the_card(games):

@@ -253,25 +253,25 @@ def test_state_from_numpy_reproduces_the_port_init(games):
 
 @pytest.mark.parametrize("field,value", [
     ("byzantine", tps.SignFlipAttack(fraction=0.25, scale=8.0, seed=1)),
-    ("sampler", object()),
+    ("sampler", tps.ClientSampler(sample=2, seed=1)),
     ("server_opt", tps.ServerNesterov(lr=1.0, beta=0.3)),
     ("aggregator", tps.TrimmedMean(beta=0.25)),
 ])
 def test_later_slices_raise_not_implemented(games, field, value):
-    """Client sampling and the sharded path (``mesh=``) still raise; the
-    hostile fleet and the outer optimizer, ported since, build and run a
-    round."""
+    """The sharded path (``mesh=``) still raises; the hostile fleet, the
+    outer optimizer and client sampling, ported since, build and run a
+    round (a sampled round on the 2 drawn lanes of the fleet of M)."""
     _, tg = games
+    eng = _port_engine(tg, rounds=1, **{field: value})
+    eng.run()
+    rec = eng.trace.rounds[0]
+    assert eng.round == 1 and np.isfinite(rec.residual)
+    assert (rec.delta_norm is not None) == (field == "server_opt")
+    assert (rec.byzantine_workers is not None) == (field == "byzantine")
+    assert (rec.sampled_workers is not None) == (field == "sampler")
     if field == "sampler":
-        with pytest.raises(NotImplementedError):
-            _port_engine(tg, **{field: value})
-    else:
-        eng = _port_engine(tg, rounds=1, **{field: value})
-        eng.run()
-        rec = eng.trace.rounds[0]
-        assert eng.round == 1 and np.isfinite(rec.residual)
-        assert (rec.delta_norm is not None) == (field == "server_opt")
-        assert (rec.byzantine_workers is not None) == (field == "byzantine")
+        assert rec.sampled_workers == value.draws(M, 1)[0].tolist()
+        assert rec.local_steps == [CFG["k"]] * 2
     with pytest.raises(NotImplementedError):
         PSEngine(tg.problem, PSConfig(adaseg=AdaSEGConfig(**CFG),
                                       num_workers=M, rounds=R),

@@ -180,6 +180,7 @@ DOCTEST_MODULES = [
     "repro_torch.problems.wgan", "repro_torch.obs.metrics",
     "repro_torch.obs.export", "repro_torch.hardware",
     "repro_torch.ps.latency", "repro_torch.ps.async_engine",
+    "repro_torch.ps.sampler",
 ]
 
 
