@@ -8,6 +8,7 @@
     python3 chip_smoke.py --wgan            # only the wgan phase (no result)
     python3 chip_smoke.py --async           # only the async phase (no result)
     python3 chip_smoke.py --sampled         # only the sampled phase (no result)
+    python3 chip_smoke.py --moe             # only the moe phases (no result)
     python3 chip_smoke.py --kernels         # only B1-B5's kernel lines
     python3 chip_smoke.py --sync-bits OUT   # the sync wrappers' outputs
     python3 chip_smoke.py --compare-bits A B  # two such files, to the bit
@@ -222,7 +223,28 @@ nothing of JAX. Phases, one JSON line each:
    0.2, 0.1), R=5: tau=inf fused; tau=2 fused and reference (host records
    and the clock equal, residuals within TOL_TRACE), a rerun and a resume
    from mid-queue bit-identical; Σ local_steps = R·S·K in each.
-   ``python3 chip_smoke.py --sampled`` runs only this phase.
+   ``python3 chip_smoke.py --sampled`` runs only this phase;
+14. moe (after ``mamba2``) — granite-moe-1b-a400m at its published widths
+   and depth (24 blocks of global causal GQA attention, 16:8 heads of 64,
+   then an MoE MLP of 32 experts top-8 at capacity factor 1.25, SiLU;
+   d_model 1024, vocab 49155; 1.33 G parameters a worker) with the flash
+   kernel, through the same engine and settings as ``lm`` at the fleets
+   that fit the memory budget. ``moe``: M=2, fused; finite eval losses and
+   z̄, B12 launched 24 times a forward (816), B1, B2 and B5 launched, the
+   peak within budget, ms per local step, tokens per second and the
+   breakdown (``moe_breakdown``); ``moe_drops`` the share of routed
+   choices dropped at capacity, per layer of one forward, at initial
+   parameters and at z̄ on the eval batch, and at worker 0's z̃ on its
+   draw. ``moe_rerun``: a second
+   oracle call at the same z and ξ, every gradient leaf bit-identical (the
+   dispatch and combine carry no atomics). ``moe_compare``: fused and
+   reference at M=1 (``moe_compare_run`` lines, each peak within budget),
+   eval losses within TOL_LM_TRACE, and ``moe_compare_step_diff``'s
+   per-leaf rows for the fused run. ``moe_small``: granite's smoke config
+   (2 layers, d_model 256, 4 experts top-2, head dim 64) card against CPU
+   within TOL_LM_SMALL at 128 tokens, then at capacity factor 1.25
+   (``moe_small_drops``), where choices are dropped on both.
+   ``python3 chip_smoke.py --moe`` runs only this phase.
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -356,6 +378,16 @@ TOL_SSD_ORACLE = 2e-4
 # largest |entry|; f32 sums of at most 256 terms in another order
 TOL_SSD_PHASE = 1e-5
 MAMBA_ARCH = "mamba2-370m"
+# The moe phase: granite-moe-1b-a400m at its published widths and depth
+# (1.33 G parameters, 5.34 GB a worker in f32) with lm's settings, at the
+# fleets that fit LM_MEMORY_BUDGET: M=2 fused, M=1 for fused against
+# reference (whose tree temporaries take more); its smoke config at
+# MOE_SMALL_SEQ tokens, also at capacity factor MOE_SMALL_CF, where the
+# smoke config's 8.0 becomes the published 1.25 and choices are dropped.
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_M, MOE_COMPARE_M = 2, 1
+MOE_SMALL_SEQ = 128
+MOE_SMALL_CF = 1.25
 # The sync kernels past 65535 workers (ROADMAP C15): B5-B10 at a fleet of
 # FLEET_ROWS (1.15 GB a (M, n) array); B10's plain version (O(M^2) eager
 # passes) is held on FLEET_TRIM_COLS columns of it (each column is merged
@@ -2868,6 +2900,132 @@ def run_lm(plan, backend, rounds, device="cuda"):
     return losses, wall * 1e3 / (rounds * plan.k_local), eng, t1 - t0
 
 
+def lm_warmup(label, cfg):
+    """One full-width gradient of one worker, so the timed runs do not pay
+    the first call's module loads."""
+    import gc
+
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.models import make_lm_problem
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prob = make_lm_problem(cfg, batch=LM_BATCH, seq=LM_SEQ)
+    keys = jr.split(jr.PRNGKey(7), 1)
+    prob.oracle(prob.init(keys), prob.sample(keys))
+    torch.cuda.synchronize()
+    emit(f"{label}_warmup", seconds=time.perf_counter() - t0)
+    del prob
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_run(label, plan, backend, kernel):
+    """One full-width ``make_ps_engine`` run (``run_lm``, R=LM_R) with the
+    path's checks: ``kernel`` launched once per layer per forward (two
+    oracle calls a worker a local step, one eval a round), B1, B2 and B5
+    launched on the fused backend, the peak memory within budget. Emits
+    the ``label`` line; returns (eval losses, ms per local step, engine,
+    launches)."""
+    import torch
+
+    cfg, m = plan.cfg, plan.workers_override
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, ms, eng, setup_s = run_lm(plan, backend, LM_R)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    forwards = LM_R * LM_K * 2 * m + LM_R     # 2 oracle calls, 1 eval
+    check(counts[kernel] == cfg.num_layers * forwards,
+          f"{label} {backend}: {kernel} launched {counts[kernel]} "
+          f"times, expected {cfg.num_layers} x {forwards} forwards")
+    if backend == "fused":
+        for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
+            check(counts[name] > 0,
+                  f"{name} never launched on the {label} path")
+    check(peak <= LM_MEMORY_BUDGET,
+          f"{label} {backend}: peak device memory {peak / 1e9:.1f} GB")
+    emit(label, arch=cfg.name, backend=backend, workers=m,
+         batch=LM_BATCH, seq=LM_SEQ, k=LM_K, rounds=LM_R,
+         params_per_worker=sum(v[0].numel() for v in eng.state.z_tilde),
+         eval_losses=losses, ms_per_local_step=ms, setup_seconds=setup_s,
+         tokens_per_s=2 * m * LM_BATCH * LM_SEQ / (ms * 1e-3),
+         peak_memory_bytes=peak, forwards=forwards, launches=counts)
+    return losses, ms, eng, counts
+
+
+def count_path(results, kernel, label, counts):
+    """A path's launches of ``kernel`` on its kernel line: ``launches``
+    holds the first path's count (the lm path's for B12), and
+    ``launches_by_path`` every path's."""
+    paths = results[kernel].setdefault("launches_by_path", {})
+    if not paths:
+        results[kernel]["launches"] = counts[kernel]
+    paths[label] = counts[kernel]
+
+
+def lm_state_gradient(plan, eng):
+    """The fused run's final state, one token draw, the fleet's gradient
+    there and the eval loss: what the breakdown and ``step_diff`` take."""
+    from repro_torch import random as jr
+    from repro_torch.models import make_eval_loss
+
+    prob, st = eng.problem, eng.state
+    keys = jr.split(jr.PRNGKey(5), plan.workers_override)
+    xi = prob.sample(keys)
+    g = prob.oracle(st.z_tilde, xi)
+    eval_fn = make_eval_loss(plan.cfg, batch=LM_BATCH, seq=LM_SEQ)
+    return prob, st, keys, xi, g, eval_fn
+
+
+def lm_breakdown(label, plan, eng, ms, prob, st, keys, xi, g, eval_fn):
+    """The fused ms per local step split into its parts, each timed alone:
+    two token draws and two gradients of the fleet, explore + anchor over
+    every leaf; a sync and an eval per round, spread over its K steps."""
+    from repro_torch.core.adaseg import eta_of
+    from repro_torch.kernels.adaseg_update.ops import (
+        adaseg_tree_anchor,
+        adaseg_tree_explore,
+    )
+    from repro_torch.kernels.sync_compress.ops import sync_merge_stacked
+
+    draw_ms = time_ms(lambda: prob.sample(keys), reps=2, trials=3)
+    grad_ms = time_ms(lambda: prob.oracle(st.z_tilde, xi), reps=1,
+                      trials=3)
+    kw = dict(sum_sq=st.sum_sq, g0=plan.adaseg.g0,
+              d_alpha=plan.adaseg.diameter * plan.adaseg.alpha,
+              proj=("identity",))
+
+    def update():
+        z_t, _ = adaseg_tree_explore(st.z_tilde, g, **kw)
+        adaseg_tree_anchor(st.z_tilde, z_t, g, **kw)
+
+    update_ms = time_ms(update, reps=2, trials=3)
+    w = 1.0 / eta_of(plan.adaseg, st.sum_sq)
+    w = w / w.sum()
+    sync_ms = time_ms(lambda: sync_merge_stacked(st.z_tilde, w),
+                      reps=2, trials=3)
+    zbar = eng.z_bar()
+    eval_ms = time_ms(lambda: eval_fn(zbar), reps=2, trials=3)
+    parts = dict(token_draws=2 * draw_ms, forward_backward=2 * grad_ms,
+                 update_kernels=update_ms, sync=sync_ms / LM_K,
+                 eval=eval_ms / LM_K)
+    emit(f"{label}_breakdown", backend="fused", ms_per_local_step=ms,
+         **parts, rest=ms - sum(parts.values()))
+
+
+def lm_compare(label, runs):
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["fused"],
+                                                 runs["reference"]))
+    emit(f"{label}_compare", fused=runs["fused"], reference=runs["reference"],
+         max_rel=rel)
+    check(rel <= TOL_LM_TRACE,
+          f"{label}: fused vs reference eval losses differ by {rel}")
+
+
 def train_lm(results, label, cfg, kernel):
     """``cfg`` at full width through the port's make_ps_engine, fused and
     reference (M=4, 1 x 1024 tokens per worker, K=4, R=2, identity codec):
@@ -2878,99 +3036,23 @@ def train_lm(results, label, cfg, kernel):
 
     import torch
 
-    from repro_torch import random as jr
-    from repro_torch.core.adaseg import eta_of
-    from repro_torch.kernels.adaseg_update.ops import (
-        adaseg_tree_anchor,
-        adaseg_tree_explore,
-    )
-    from repro_torch.kernels.sync_compress.ops import sync_merge_stacked
-    from repro_torch.models import make_eval_loss, make_lm_problem
-
-    gc.collect()
-    torch.cuda.empty_cache()
+    lm_warmup(label, cfg)
     plan = lm_plan(cfg, LM_M, LM_K, LM_SEQ, LM_BATCH)
-
-    # Warm-up: one full-width gradient of one worker, so the timed runs do
-    # not pay the first call's module loads.
-    t0 = time.perf_counter()
-    prob = make_lm_problem(cfg, batch=LM_BATCH, seq=LM_SEQ)
-    keys = jr.split(jr.PRNGKey(7), 1)
-    prob.oracle(prob.init(keys), prob.sample(keys))
-    torch.cuda.synchronize()
-    emit(f"{label}_warmup", seconds=time.perf_counter() - t0)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    forwards = LM_R * LM_K * 2 * LM_M + LM_R     # 2 oracle calls, 1 eval
     runs = {}
     for backend in ("fused", "reference"):
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        losses, ms, eng, setup_s = run_lm(plan, backend, LM_R)
-        lm_launches = launches()
-        peak = torch.cuda.max_memory_allocated()
-        check(lm_launches[kernel] == cfg.num_layers * forwards,
-              f"{label} {backend}: {kernel} launched {lm_launches[kernel]} "
-              f"times, expected {cfg.num_layers} x {forwards} forwards")
-        if backend == "fused":
-            for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
-                check(lm_launches[name] > 0,
-                      f"{name} never launched on the {label} path")
-            results[kernel]["launches"] = lm_launches[kernel]
-        check(peak <= LM_MEMORY_BUDGET,
-              f"{label} {backend}: peak device memory {peak / 1e9:.1f} GB")
+        losses, ms, eng, counts = lm_run(label, plan, backend, kernel)
         runs[backend] = losses
-        emit(label, arch=cfg.name, backend=backend, workers=LM_M,
-             batch=LM_BATCH, seq=LM_SEQ, k=LM_K, rounds=LM_R,
-             params_per_worker=sum(v[0].numel() for v in eng.state.z_tilde),
-             eval_losses=losses, ms_per_local_step=ms, setup_seconds=setup_s,
-             tokens_per_s=2 * LM_M * LM_BATCH * LM_SEQ / (ms * 1e-3),
-             peak_memory_bytes=peak, forwards=forwards, launches=lm_launches)
         if backend == "fused":
-            # Per local step: two token draws and two gradients of the
-            # fleet, explore + anchor over every leaf; a sync and an eval
-            # per round, spread over its K steps. Each part timed alone.
-            prob, st = eng.problem, eng.state
-            keys = jr.split(jr.PRNGKey(5), LM_M)
-            draw_ms = time_ms(lambda: prob.sample(keys), reps=2, trials=3)
-            xi = prob.sample(keys)
-            grad_ms = time_ms(lambda: prob.oracle(st.z_tilde, xi), reps=1,
-                              trials=3)
-            g = prob.oracle(st.z_tilde, xi)
-            kw = dict(sum_sq=st.sum_sq, g0=plan.adaseg.g0,
-                      d_alpha=plan.adaseg.diameter * plan.adaseg.alpha,
-                      proj=("identity",))
-
-            def update():
-                z_t, _ = adaseg_tree_explore(st.z_tilde, g, **kw)
-                adaseg_tree_anchor(st.z_tilde, z_t, g, **kw)
-
-            update_ms = time_ms(update, reps=2, trials=3)
-            w = 1.0 / eta_of(plan.adaseg, st.sum_sq)
-            w = w / w.sum()
-            sync_ms = time_ms(lambda: sync_merge_stacked(st.z_tilde, w),
-                              reps=2, trials=3)
-            eval_fn = make_eval_loss(cfg, batch=LM_BATCH, seq=LM_SEQ)
-            zbar = eng.z_bar()
-            eval_ms = time_ms(lambda: eval_fn(zbar), reps=2, trials=3)
-            parts = dict(token_draws=2 * draw_ms,
-                         forward_backward=2 * grad_ms,
-                         update_kernels=update_ms,
-                         sync=sync_ms / LM_K, eval=eval_ms / LM_K)
-            emit(f"{label}_breakdown", backend=backend, ms_per_local_step=ms,
-                 **parts, rest=ms - sum(parts.values()))
+            count_path(results, kernel, label, counts)
+            parts = lm_state_gradient(plan, eng)
+            lm_breakdown(label, plan, eng, ms, *parts)
+            prob, st, _, _, g, eval_fn = parts
             step_diff(label, plan, prob, st, g, eval_fn)
-            del g, xi, zbar, prob, st
+            del parts, prob, st, g, eval_fn
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["fused"],
-                                                 runs["reference"]))
-    emit(f"{label}_compare", fused=runs["fused"], reference=runs["reference"],
-         max_rel=rel)
-    check(rel <= TOL_LM_TRACE,
-          f"{label}: fused vs reference eval losses differ by {rel}")
+    lm_compare(label, runs)
 
 
 def leaf_names(tree, prefix=""):
@@ -3060,21 +3142,24 @@ def step_diff(label, plan, prob, st, g, eval_fn):
          eval_rel=abs(loss_k - loss_r) / abs(loss_r))
 
 
-def small_lm(label, cfg, kernel, seq):
+def small_lm(label, cfg, kernel, seq, extra=lambda card, host: {}):
     """A narrow ``cfg`` through the same engine on the card and on the CPU,
     where every kernel is its plain version: the eval-loss traces must
-    agree within TOL_LM_SMALL."""
+    agree within TOL_LM_SMALL. ``extra(card engine, cpu engine)`` gives
+    more fields for the line, which are returned."""
     splan = lm_plan(cfg, 2, 2, seq, 2)
     reset_launches()
-    card, _, _, _ = run_lm(splan, "fused", 2)
+    card, _, card_eng, _ = run_lm(splan, "fused", 2)
     small_launches = launches()[kernel]
-    host, _, _, _ = run_lm(splan, "fused", 2, device="cpu")
+    host, _, host_eng, _ = run_lm(splan, "fused", 2, device="cpu")
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+    more = extra(card_eng, host_eng)
     emit(label, arch=cfg.name, card=card, cpu=host, max_rel=rel,
-         **{f"{kernel}_launches": small_launches})
+         **{f"{kernel}_launches": small_launches}, **more)
     check(small_launches > 0, f"{label}: {kernel} never launched")
     check(rel <= TOL_LM_SMALL,
           f"{label}: card vs CPU eval losses differ by {rel}")
+    return more
 
 
 def phase_lm(results):
@@ -3139,6 +3224,108 @@ def phase_mamba2(results):
     small_lm("mamba2_small", dataclasses.replace(smoke_config(MAMBA_ARCH),
                                                  ssm_backend="pallas"),
              "ssd_scan", 128)
+
+
+def moe_dropped(cfg, params, tokens):
+    """Per MoE layer, the share of one forward's routed choices dropped at
+    capacity (``params`` a tuple of one model's leaves)."""
+    import torch
+
+    from repro_torch.models import param_tree
+    from repro_torch.models.transformer import forward
+
+    counts = []
+    with torch.no_grad():
+        forward(param_tree(params, cfg), cfg, tokens, moe_dropped=counts)
+    routed = tokens.numel() * cfg.experts_per_token
+    return [int(c) / routed for c in counts]
+
+
+def moe_rerun(prob, st, xi, g):
+    """A second oracle call at the same z and ξ: every gradient leaf must
+    equal the first call's to the bit (the dispatch and combine sum in a
+    fixed order, without atomics)."""
+    t0 = time.perf_counter()
+    again = prob.oracle(st.z_tilde, xi)
+    differ = [int((a != b).sum()) for a, b in zip(g, again)]
+    emit("moe_rerun", leaves=len(differ), workers=st.z_tilde[0].shape[0],
+         entries=sum(v.numel() for v in g), entries_differ=sum(differ),
+         seconds=time.perf_counter() - t0)
+    check(not any(differ),
+          f"moe_rerun: gradients differ in {sum(differ)} entries")
+
+
+def phase_moe(results):
+    """granite-moe-1b-a400m at full width (24 layers of 16:8 GQA heads of 64
+    and 32 experts top-8 at capacity factor 1.25, vocab 49155) with the
+    flash kernel through the port's make_ps_engine: the fleet (``moe``,
+    M=2, fused), a rerun of the oracle (``moe_rerun``), fused against
+    reference at M=1 (``moe_compare``), then its smoke config on the card
+    against the CPU with no drops and at capacity 1.25 (``moe_small``)."""
+    import gc
+
+    import torch
+
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.moe import _capacity
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attn_backend="pallas")
+    lm_warmup("moe", cfg)
+    plan = lm_plan(cfg, MOE_M, LM_K, LM_SEQ, LM_BATCH)
+    _, ms, eng, counts = lm_run("moe", plan, "fused", "flash_attention")
+    count_path(results, "flash_attention", "moe", counts)
+    parts = lm_state_gradient(plan, eng)
+    prob, st, keys, xi, g, eval_fn = parts
+    eval_tokens = make_batch(jr.PRNGKey(987), cfg, LM_BATCH, LM_SEQ)["tokens"]
+    shares = dict(
+        init_eval_batch=moe_dropped(cfg, tuple(v[0] for v in prob.init(
+            jr.split(jr.PRNGKey(7), 1))), eval_tokens),
+        zbar_eval_batch=moe_dropped(cfg, eng.z_bar(), eval_tokens),
+        worker0_draw=moe_dropped(cfg, tuple(v[0] for v in st.z_tilde),
+                                 xi["tokens"][0]))
+    emit("moe_drops", capacity_factor=cfg.capacity_factor,
+         capacity=_capacity(cfg, LM_BATCH * LM_SEQ),
+         routed_per_layer=LM_BATCH * LM_SEQ * cfg.experts_per_token,
+         **shares, **{f"{k}_forward": statistics.fmean(v)
+                      for k, v in shares.items()})
+    lm_breakdown("moe", plan, eng, ms, *parts)
+    moe_rerun(prob, st, xi, g)
+    del parts, prob, st, keys, xi, g, eval_fn, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plan = lm_plan(cfg, MOE_COMPARE_M, LM_K, LM_SEQ, LM_BATCH)
+    runs = {}
+    for backend in ("fused", "reference"):
+        runs[backend], _, eng, counts = lm_run("moe_compare_run", plan,
+                                               backend, "flash_attention")
+        if backend == "fused":
+            prob, st, _, _, g, eval_fn = lm_state_gradient(plan, eng)
+            step_diff("moe_compare", plan, prob, st, g, eval_fn)
+            del prob, st, g, eval_fn
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    lm_compare("moe", runs)
+
+    small = dataclasses.replace(smoke_config(MOE_ARCH), attn_backend="pallas")
+    for label, cf in (("moe_small", small.capacity_factor),
+                      ("moe_small_drops", MOE_SMALL_CF)):
+        small = dataclasses.replace(small, capacity_factor=cf)
+
+        def drops(card, host, c=small):
+            return {f"dropped_{dev}": moe_dropped(c, e.z_bar(), make_batch(
+                jr.PRNGKey(987, device=dev), c, 2, MOE_SMALL_SEQ)["tokens"])
+                for dev, e in (("cuda", card), ("cpu", host))}
+
+        seen = small_lm(label, small, "flash_attention", MOE_SMALL_SEQ,
+                        drops)
+    check(min(seen["dropped_cuda"]) > 0 and min(seen["dropped_cpu"]) > 0,
+          f"moe_small_drops: no choice dropped at capacity {MOE_SMALL_CF}")
+    emit("moe_phase", seconds=time.perf_counter() - t_phase)
 
 
 def event_ms(fn):
@@ -3597,6 +3784,9 @@ def main() -> int:
         phase_async(None, make_bilinear_game(jr.PRNGKey(0), n=N, sigma=0.1),
                     smi)
         return 0
+    if sys.argv[1:] == ["--moe"]:
+        phase_moe({"flash_attention": {"name": "flash_attention"}})
+        return 0
     if sys.argv[1:] == ["--sampled"]:
         from repro_torch import random as jr
         from repro_torch.problems import make_bilinear_game
@@ -3622,6 +3812,7 @@ def main() -> int:
     phase_wgan(smi)
     phase_lm(results)
     phase_mamba2(results)
+    phase_moe(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 
 Pre-norm residual blocks: a mixer, attention (global or sliding-window) or
 Mamba2's SSD (``kind == "ssm"``), then a gated MLP where the config has one
-(``d_ff > 0``; mamba2 has none). Layers are ``num_groups`` repetitions of a
+(``d_ff > 0``; mamba2 has none) or, in MoE configs, a Mixture-of-Experts
+layer (:mod:`repro_torch.models.moe`), whose router aux losses
+:func:`forward` sums in the JAX package's order. Layers are ``num_groups`` repetitions of a
 ``pattern_period``-long stage, and each period position's parameters are
 stacked with a leading group axis (``_init_stage``), the JAX package's
 layout, so parameters and checkpoints cross between the packages leaf for
@@ -16,7 +18,7 @@ Parameters live in two forms: a nested dict for one model (what
 of worker-stacked leaves in ``jax.tree.leaves`` order (dict keys sorted,
 lists in order): :func:`param_leaves` and :func:`param_tree` convert.
 
-MoE and RG-LRU layers are ported with the other mixers (ROADMAP A18);
+RG-LRU layers are ported with recurrentgemma (ROADMAP A18c);
 encoder-decoder and cross-attention stacks, the KV and SSM caches and
 decode with serving (A19). Their configs raise ``NotImplementedError``.
 
@@ -53,6 +55,7 @@ from .layers import (
     split,
 )
 from .mlp import apply_mlp, init_mlp
+from .moe import apply_moe, init_moe
 from .ssm import apply_ssm, init_ssm
 
 
@@ -66,11 +69,10 @@ def check_supported(cfg: ArchConfig) -> None:
             "(ROADMAP A19)")
     if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
         raise NotImplementedError(f"{cfg.name}: the port computes in float32")
-    for kind in cfg.layer_kinds():
-        if kind["moe"] or kind["kind"] == "rglru":
-            raise NotImplementedError(
-                f"{cfg.name}: {'moe' if kind['moe'] else kind['kind']} "
-                "layers are ported with the other mixers (ROADMAP A18)")
+    if any(kind["kind"] == "rglru" for kind in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name}: rglru layers are ported with recurrentgemma "
+            "(ROADMAP A18c)")
 
 
 def init_norm(key_like, cfg: ArchConfig):
@@ -89,7 +91,10 @@ def _init_block(key, cfg: ArchConfig, kind: dict):
     keys = split(key, 8)
     mixer = init_ssm if kind["kind"] == "ssm" else init_attention
     p = {"pre_norm": init_norm(key, cfg), "mixer": mixer(keys[0], cfg)}
-    if cfg.d_ff > 0:
+    if kind["moe"]:
+        p["mlp_norm"] = init_norm(key, cfg)
+        p["mlp"] = init_moe(keys[2], cfg)
+    elif cfg.d_ff > 0:
         p["mlp_norm"] = init_norm(key, cfg)
         p["mlp"] = init_mlp(keys[2], cfg)
     if cfg.post_norm:
@@ -154,7 +159,8 @@ def param_tree(leaves, cfg: ArchConfig):
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _block_forward(lp, cfg: ArchConfig, kind, x, positions):
+def _block_forward(lp, cfg: ArchConfig, kind, x, positions, dropped):
+    """One block: ``(x, aux)``, aux the MoE router loss or None."""
     h = apply_norm(cfg, lp["pre_norm"], x)
     if kind["kind"] == "ssm":
         out = apply_ssm(lp["mixer"], cfg, h)
@@ -165,12 +171,25 @@ def _block_forward(lp, cfg: ArchConfig, kind, x, positions):
         out = apply_norm(cfg, lp["mixer_post"], out)
     x = x + out
     if "mlp" not in lp:
-        return x
+        return x, None
     h = apply_norm(cfg, lp["mlp_norm"], x)
-    out = apply_mlp(lp["mlp"], cfg, h)
+    aux = None
+    if kind["moe"]:
+        out, aux = apply_moe(lp["mlp"], cfg, h,
+                             shard_dispatch=cfg.moe_shard_dispatch,
+                             dropped=dropped)
+    else:
+        out = apply_mlp(lp["mlp"], cfg, h)
     if cfg.post_norm:
         out = apply_norm(cfg, lp["mlp_post"], out)
-    return x + out
+    return x + out, aux
+
+
+def _add(a, b):
+    """a + b, where None is a zero (the blocks without an MoE layer)."""
+    if a is None:
+        return b
+    return a if b is None else a + b
 
 
 def _group(tree, g: int):
@@ -179,8 +198,13 @@ def _group(tree, g: int):
     return tree[g]
 
 
-def forward(params, cfg: ArchConfig, tokens):
-    """tokens: (B, S) → (logits (B, S, V) f32, MoE aux = 0)."""
+def forward(params, cfg: ArchConfig, tokens, *, moe_dropped=None):
+    """tokens: (B, S) → (logits (B, S, V) f32, MoE aux).
+
+    The aux losses are summed as the JAX package sums them: over a period's
+    blocks, then over the groups (``jnp.sum`` of the scan's outputs), then
+    the tail blocks; 0 without MoE layers. ``moe_dropped``, where given, is a list to which each MoE layer
+    appends its count of routed choices dropped at capacity."""
     check_supported(cfg)
     x = apply_embedding(params["embed"], tokens).float()
     if cfg.scale_embed:
@@ -190,13 +214,20 @@ def forward(params, cfg: ArchConfig, tokens):
 
     kinds = cfg.layer_kinds()
     period = cfg.pattern_period()
+    group_aux = []
     for g in range(cfg.num_groups()):
+        aux_g = None
         for j in range(period):
-            x = _block_forward(_group(params["stages"][j], g), cfg, kinds[j],
-                               x, positions)
+            x, aux = _block_forward(_group(params["stages"][j], g), cfg,
+                                    kinds[j], x, positions, moe_dropped)
+            aux_g = _add(aux_g, aux)
+        if aux_g is not None:
+            group_aux.append(aux_g)
+    aux_total = torch.sum(torch.stack(group_aux)) if group_aux else None
     for i, lp in enumerate(params.get("tail", [])):
-        x = _block_forward(lp, cfg, kinds[cfg.num_groups() * period + i], x,
-                           positions)
+        x, aux = _block_forward(lp, cfg, kinds[cfg.num_groups() * period + i],
+                                x, positions, moe_dropped)
+        aux_total = _add(aux_total, aux)
 
     x = apply_norm(cfg, params["final_norm"], x)
     head = (params["embed"]["table"].T if cfg.tie_embeddings
@@ -204,12 +235,14 @@ def forward(params, cfg: ArchConfig, tokens):
     logits = (x @ head).float()
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
-    return logits, torch.zeros((), device=logits.device)
+    if aux_total is None:
+        aux_total = torch.zeros((), device=logits.device)
+    return logits, aux_total
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Next-token cross-entropy. batch: {tokens, labels}; labels are the
-    tokens shifted by one, −1 masked."""
+    """Next-token cross-entropy (+ the MoE router aux loss). batch:
+    {tokens, labels}; labels are the tokens shifted by one, −1 masked."""
     logits, aux = forward(params, cfg, batch["tokens"])
     labels = batch["labels"].long()
     mask = labels >= 0

@@ -4,10 +4,12 @@ transformer's initial parameters, loss and gradients (reference attention
 and the flash route), ``make_ps_engine`` end to end, the ``ModelWorker``
 fingerprint, and checkpoints across architectures and packages.
 
-Five configs: ``tiny_lm_config()``, a narrow qwen2-shaped one (QKV bias,
+Seven configs: ``tiny_lm_config()``, a narrow qwen2-shaped one (QKV bias,
 tied embeddings, GQA 14:2, head_dim 8, rope θ 1e6, 2 layers, vocab 256),
-narrow gemma2- and qwen3-shaped ones for their branches, and a narrow
-mamba2-shaped one (SSD blocks, no MLP).
+narrow gemma2- and qwen3-shaped ones for their branches, a narrow
+mamba2-shaped one (SSD blocks, no MLP), and narrow granite- and
+mixtral-shaped ones (MoE layers: 32 experts top-8, and 8 experts top-2
+under sliding windows).
 Nothing runs at full width. Tolerances are stated at each assertion; the
 two packages differ in f32 sum order and in ``erfinv``/``log`` ulps
 (ROADMAP C3), never in the tokens drawn.
@@ -81,9 +83,27 @@ MAMBA2_NARROW = jconfigs.ArchConfig(
     ssm_state=16, ssm_head_dim=16, ssm_expand=2, ssm_conv_width=4,
     ssm_chunk=8, tie_embeddings=True, norm_eps=1e-5,
 )
+# granite's branch: MoE layers with its routing (32 experts, top-8,
+# capacity factor 1.25, SiLU experts), GQA, tied embeddings.
+GRANITE_NARROW = jconfigs.ArchConfig(
+    name="granite-narrow", arch_type="moe", num_layers=2, d_model=64,
+    num_heads=4, num_kv_heads=2, head_dim=16, d_ff=32, vocab_size=256,
+    num_experts=32, experts_per_token=8, tie_embeddings=True,
+    max_seq_len=64,
+)
+# mixtral's: 8 experts, top-2, every layer a sliding window shorter than
+# SEQ, rope θ 1e6, an untied head.
+MIXTRAL_NARROW = jconfigs.ArchConfig(
+    name="mixtral-narrow", arch_type="moe", num_layers=2, d_model=64,
+    num_heads=4, num_kv_heads=2, head_dim=16, d_ff=48, vocab_size=256,
+    num_experts=8, experts_per_token=2, layer_pattern="swa",
+    sliding_window=6, rope_theta=1_000_000.0, max_seq_len=64,
+)
 JAX_CONFIGS = {"tiny": jax_tiny(), "qwen2_narrow": QWEN2_NARROW,
                "gemma2_narrow": GEMMA2_NARROW, "qwen3_narrow": QWEN3_NARROW,
-               "mamba2_narrow": MAMBA2_NARROW}
+               "mamba2_narrow": MAMBA2_NARROW,
+               "granite_narrow": GRANITE_NARROW,
+               "mixtral_narrow": MIXTRAL_NARROW}
 
 
 def _jax_cfg(name, backend="reference"):
@@ -134,7 +154,7 @@ def test_validate_refuses_what_the_jax_package_refuses():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "A18"), ("recurrentgemma-9b", "A18"),
+    ("recurrentgemma-9b", "A18"),
     ("whisper-small", "A19"), ("llama-3.2-vision-11b", "A19")])
 def test_other_layer_kinds_wait_for_their_slice(arch, item):
     cfg = tconfigs.smoke_config(arch)
@@ -154,6 +174,35 @@ def test_mamba2_smoke_config_builds_a_problem(ssm_backend):
     grads = prob.oracle(z, prob.sample(keys))
     assert [tuple(g.shape) for g in grads] == [tuple(v.shape) for v in z]
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x22b"])
+def test_moe_smoke_configs_build_a_problem(arch):
+    """The MoE layer is ported: each MoE smoke config (4 experts, top-2)
+    initializes, draws a batch and takes a finite gradient whose router
+    leaf is nonzero (the aux loss and the gates reach it)."""
+    cfg = dataclasses.replace(tconfigs.smoke_config(arch),
+                              attn_backend="pallas")
+    prob = make_lm_problem(cfg, batch=1, seq=16)
+    keys = torch.stack([_key(1), _key(2)])
+    z = prob.init(keys)
+    grads = prob.oracle(z, prob.sample(keys))
+    assert [tuple(g.shape) for g in grads] == [tuple(v.shape) for v in z]
+    assert all(torch.isfinite(g).all() for g in grads)
+    names = [".".join(n) for n in _leaf_paths(param_tree(z, cfg))]
+    router = grads[names.index("stages.0.mlp.router")]
+    assert router.abs().sum() > 0
+
+
+def _leaf_paths(tree, prefix=()):
+    """Leaf paths in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _leaf_paths(tree[k],
+                                                              prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in _leaf_paths(v, prefix + (str(i),))]
+    return [prefix]
 
 
 def test_other_dtypes_are_refused():
@@ -296,6 +345,31 @@ def test_mamba2_params_round_trip_through_numpy():
         np.testing.assert_array_equal(a, b)
 
 
+def test_moe_params_round_trip_through_numpy():
+    """granite's MoE leaves (router, w_gate, w_in, w_out, with the stacked
+    group axis), in ``jax.tree.leaves`` order, both ways."""
+    jcfg = _jax_cfg("granite_narrow")
+    cfg = _port_cfg(jcfg)
+    jparams = jax.tree.map(np.asarray,
+                           jax_init_model(jax.random.PRNGKey(2), jcfg)[0])
+    leaves = interop.params_from_numpy(jparams, cfg, device="cpu")
+    paths = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    names = [".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path) for path, _ in paths]
+    assert [n for n in names if ".mlp." in n] == [
+        "stages.0.mlp.router", "stages.0.mlp.w_gate", "stages.0.mlp.w_in",
+        "stages.0.mlp.w_out"]
+    assert leaves[names.index("stages.0.mlp.w_in")].shape == (2, 32, 64, 32)
+    assert names == [".".join(p) for p in _leaf_paths(param_tree(leaves,
+                                                                 cfg))]
+    for a, b in zip(leaves, jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    back = interop.params_to_numpy(leaves, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(jparams)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # make_ps_engine end to end
 # ---------------------------------------------------------------------------
@@ -342,6 +416,11 @@ def jax_mamba2_runs():
     return _jax_runs("mamba2_narrow")
 
 
+@pytest.fixture(scope="module")
+def jax_moe_runs():
+    return _jax_runs("granite_narrow")
+
+
 @pytest.mark.parametrize("backend", ["reference", "fused"])
 def test_make_ps_engine_matches_jax(jax_runs, backend):
     """M=2, K=2, R=2 on the qwen2-shaped config with the flash route: the
@@ -373,6 +452,24 @@ def test_make_ps_engine_matches_jax_on_mamba2(jax_mamba2_runs, backend):
     for g, w in zip(z, want_z):
         np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
     assert eng.trace.meta["problem"] == f"lm[mamba2-narrow]x{BATCH}x{SEQ}"
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_make_ps_engine_matches_jax_on_moe(jax_moe_runs, backend):
+    """M=2, K=2, R=2 on the granite-shaped config (MoE layers, the flash
+    route): the eval-loss trace at rtol 1e-5, z̄ at rtol 1e-4 / atol
+    1e-5."""
+    want_trace, want_z = jax_moe_runs[backend]
+    eng = _port_engine(backend,
+                       cfg=_port_cfg(_jax_cfg("granite_narrow", "pallas")))
+    z = eng.run()
+    trace = [r.residual for r in eng.trace.rounds]
+    assert len(trace) == R and all(np.isfinite(trace))
+    np.testing.assert_allclose(trace, want_trace, rtol=TRACE_RTOL)
+    assert len(z) == len(want_z) == 12
+    for g, w in zip(z, want_z):
+        np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
+    assert eng.trace.meta["problem"] == f"lm[granite-narrow]x{BATCH}x{SEQ}"
 
 
 def test_make_ps_engine_refuses_later_slices():
@@ -437,7 +534,8 @@ def test_make_ps_engine_async_matches_jax(jax_async_run, backend):
         np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
 
 
-@pytest.mark.parametrize("arch", ["tiny-lm", "qwen2-0.5b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["tiny-lm", "qwen2-0.5b", "mamba2-370m",
+                                  "granite-moe-1b-a400m"])
 def test_model_worker_fingerprint_equals_jax(arch):
     jw = JaxModelWorker(JaxAdaSEG(**ADASEG), arch=arch)
     tw = ModelWorker(AdaSEGConfig(**ADASEG), arch=arch)
@@ -484,6 +582,58 @@ def test_lm_checkpoint_crosses_to_the_jax_engine(jax_runs, tmp_path):
                                rtol=TRACE_RTOL)
     for g, w in zip(_jax_leaves(z), want_z):
         np.testing.assert_allclose(g, w, **ZBAR_TOL)
+
+
+def _fleet_state(state):
+    return [*state.z_tilde, state.sum_sq, state.t, *state.z_bar,
+            state.grad_sq_sum, state.worker_id]
+
+
+def test_moe_checkpoint_crosses_to_the_jax_engine(jax_moe_runs, tmp_path):
+    """A port checkpoint of the granite-shaped engine after round 1
+    restores into the JAX engine, which runs round 2 to the JAX package's
+    uninterrupted result: eval loss at rtol 1e-5, z̄ at rtol 1e-4 / atol
+    1e-5."""
+    path = str(tmp_path / "moe.ckpt")
+    cfg = _port_cfg(_jax_cfg("granite_narrow", "pallas"))
+    eng = _port_engine("reference", cfg=cfg)
+    eng.run(until_round=1)
+    eng.save(path)
+    jeng = _jax_engine("reference", name="granite_narrow").restore(path)
+    assert jeng.round == 1
+    state = _jax_leaves(jeng.state)
+    mine = _fleet_state(eng.state)
+    assert len(state) == len(mine)
+    for a, b in zip(state, mine):
+        np.testing.assert_array_equal(a, b.numpy())
+    z = jeng.run()
+    want_trace, want_z = jax_moe_runs["reference"]
+    np.testing.assert_allclose(jeng.trace.rounds[-1].residual, want_trace[-1],
+                               rtol=TRACE_RTOL)
+    for g, w in zip(_jax_leaves(z), want_z):
+        np.testing.assert_allclose(g, w, **ZBAR_TOL)
+
+
+def test_jax_moe_checkpoint_restores_into_the_port(jax_moe_runs, tmp_path):
+    """The other way: the JAX engine on the granite-shaped config saved
+    after round 1 restores into the port's engine (state bit for bit),
+    which runs round 2 to the JAX package's uninterrupted result."""
+    path = str(tmp_path / "moe.ckpt")
+    jeng = _jax_engine("fused", name="granite_narrow")
+    jeng.run(until_round=1)
+    jeng.save(path)
+    eng = _port_engine("fused",
+                       cfg=_port_cfg(_jax_cfg("granite_narrow", "pallas")))
+    eng.restore(path)
+    assert eng.round == 1 and eng.trace.rounds == []
+    for a, b in zip(_fleet_state(eng.state), _jax_leaves(jeng.state)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    z = eng.run()
+    want_trace, want_z = jax_moe_runs["fused"]
+    np.testing.assert_allclose([r.residual for r in eng.trace.rounds],
+                               want_trace[1:], rtol=TRACE_RTOL)
+    for g, w in zip(z, want_z):
+        np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
 
 
 def test_engine_holds_one_fleet_state_in_flight():
