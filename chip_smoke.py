@@ -8,7 +8,9 @@
     python3 chip_smoke.py --wgan            # only the wgan phase (no result)
     python3 chip_smoke.py --async           # only the async phase (no result)
     python3 chip_smoke.py --sampled         # only the sampled phase (no result)
+    python3 chip_smoke.py --flash           # only flash_kernels (no result)
     python3 chip_smoke.py --moe             # only the moe phases (no result)
+    python3 chip_smoke.py --rg              # only the rg phases (no result)
     python3 chip_smoke.py --kernels         # only B1-B5's kernel lines
     python3 chip_smoke.py --sync-bits OUT   # the sync wrappers' outputs
     python3 chip_smoke.py --compare-bits A B  # two such files, to the bit
@@ -151,13 +153,19 @@ nothing of JAX. Phases, one JSON line each:
 9. flash_kernels — the flash-attention kernel (B12) against its plain
    PyTorch version on unit-normal inputs, within 2e-5: the language-model
    path's shape (B=1, H=14, Kh=2, S=T=1024, D=64, causal), a sliding
-   window of 256, a soft cap of 50, D=128 and S=1000 (a ragged tile),
-   reruns bit-identical; timed beside its plain version and
-   ``scaled_dot_product_attention`` (f32, no TF32; a yardstick only, the
-   port never calls it). ``bound_ms`` is the faster of the card's two
-   routes to f32-accurate products: the split product on the tensor cores
-   (three TF32 terms at the dense TF32 peak, beside the exponentials on the
-   MUFU and the bytes), which is always below the f32 FMAs' bound;
+   window of 256, a soft cap of 50, D=128, S=1000 (a ragged tile),
+   granite's H=16 over Kh=8, and recurrentgemma's head dim 256 with H=16
+   over Kh=1 under its window of 2048, at S=1024 (its path, where the
+   window does not bind) and at S=4096 (``rg_d256``, ``rg_d256_window``),
+   reruns bit-identical; timed beside its plain version and, at every
+   variant without a soft cap, ``scaled_dot_product_attention`` (f32, no
+   TF32, a binding window as a boolean mask; a yardstick only, the port
+   never calls it; it has no ``out=`` form, so only the fresh-output
+   pairing). ``bound_ms`` is the faster of
+   the card's two routes to f32-accurate products: the split product on
+   the tensor cores (three TF32 terms at the dense TF32 peak, beside the
+   exponentials on the MUFU and the bytes), which is always below the f32
+   FMAs' bound;
 10. ssd_kernels — the SSD scan kernel (B13) against its plain version (the
    kernels' chunked arithmetic) within TOL_SSD and against the sequential
    recurrence within TOL_SSD_ORACLE (max abs error over the largest |y|),
@@ -244,7 +252,22 @@ nothing of JAX. Phases, one JSON line each:
    (2 layers, d_model 256, 4 experts top-2, head dim 64) card against CPU
    within TOL_LM_SMALL at 128 tokens, then at capacity factor 1.25
    (``moe_small_drops``), where choices are dropped on both.
-   ``python3 chip_smoke.py --moe`` runs only this phase.
+   ``python3 chip_smoke.py --moe`` runs only this phase;
+15. rg (after ``moe``) — recurrentgemma-9b at its published widths
+   (d_model 4096, d_rnn 4096, 16:1 heads of 256, window 2048, GeGLU d_ff
+   12288, vocab 256000 tied, scaled embedding) cut to 5 of its 38 layers:
+   one (rglru, rglru, local attention) period as the stacked group and the
+   two-layer rglru tail (2.17 G parameters, 8.70 GB a worker), with the
+   flash kernel, through the same engine and settings as ``lm`` at M=1,
+   fused and reference (``rg`` lines): finite eval losses and z̄, B12
+   launched once a forward (18 a run), B1, B2 and B5 launched, each peak
+   within budget, fused vs reference within TOL_LM_TRACE (``rg_compare``),
+   ms per local step, tokens per second, ``rg_breakdown`` and
+   ``rg_step_diff`` for the fused run. ``rg_rerun``: a second oracle call
+   at the same z and ξ, every gradient leaf bit-identical (the RG-LRU's
+   scan and conv). ``rg_small``: the smoke config (3 layers, head dim 64,
+   window 8) card against CPU within TOL_LM_SMALL at 128 tokens, where
+   the window binds. ``python3 chip_smoke.py --rg`` runs only this phase.
 
 Then it prints the per-kernel JSON line and, last, ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and prints no
@@ -350,6 +373,13 @@ FLASH_VARIANTS = {
     "softcap50": dict(softcap=50.0),
     "d128": dict(d=128),
     "s1000": dict(s=1000),
+    # granite's 16 query heads over 8 KV heads of 64, causal
+    "granite": dict(h=16, kh=8),
+    # recurrentgemma's 16 query heads over one KV head of 256 under its
+    # window of 2048, as its path calls the kernel: at the path's sequence,
+    # where the window does not bind, and at 4096, where it does
+    "rg_d256": dict(h=16, kh=1, d=256, window=2048),
+    "rg_d256_window": dict(h=16, kh=1, s=4096, d=256, window=2048),
 }
 TOL_FLASH = 2e-5     # max abs error on unit-normal inputs
 # The lm phase: examples/train_lm.py's settings at qwen2-0.5b's full width.
@@ -388,6 +418,19 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_M, MOE_COMPARE_M = 2, 1
 MOE_SMALL_SEQ = 128
 MOE_SMALL_CF = 1.25
+# The rg phase: recurrentgemma-9b at its published widths (d_model 4096,
+# d_rnn 4096, 16:1 heads of 256, window 2048, GeGLU d_ff 12288, vocab
+# 256000 tied; 2.17 G parameters, 8.70 GB a worker at this depth) cut to
+# RG_LAYERS of its 38 layers: one (rglru, rglru, local attention) period
+# as the stacked group and the two-layer rglru tail, the full model's
+# group-and-tail structure. M=1: a fused fleet takes ~5.5 copies of its
+# parameters, so M=2 would pass LM_MEMORY_BUDGET. Its smoke config at
+# RG_SMALL_SEQ tokens, where its window of 8 binds.
+RG_ARCH = "recurrentgemma-9b"
+RG_LAYERS, RG_M = 5, 1
+RG_SMALL_SEQ = 128
+# the layer kind that launches each model kernel once a forward
+KERNEL_KIND = {"flash_attention": "attn", "ssd_scan": "ssm"}
 # The sync kernels past 65535 workers (ROADMAP C15): B5-B10 at a fleet of
 # FLEET_ROWS (1.15 GB a (M, n) array); B10's plain version (O(M^2) eager
 # passes) is held on FLEET_TRIM_COLS columns of it (each column is merged
@@ -2638,8 +2681,9 @@ def phase_zoo(game, smi):
 
 def phase_flash_kernels(results):
     """The flash-attention kernel (B12) against its plain version at the
-    path's shape and four variants, and its time beside the plain version
-    and ``scaled_dot_product_attention``."""
+    path's shape and its variants (``FLASH_VARIANTS``), and its time beside
+    the plain version and, where it computes the same function,
+    ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as tnf
 
@@ -2675,7 +2719,8 @@ def phase_flash_kernels(results):
         check(err <= TOL_FLASH, f"flash_attention {label}: max abs err {err}")
         check(torch.equal(got, again),
               f"flash_attention {label}: a rerun differs")
-        # 12 input sets of 5.2 MB (more at D=128) exceed the 50 MB L2
+        # 12 input sets of 5.2 MB (more at D=128, 16 heads or D=256)
+        # exceed the 50 MB L2
         sets = [inputs(100 + i, b, h, kh, s, d) for i in range(12)]
         ms = graph_ms([lambda x=x: fk.flash_attention(*x, causal=True,
                                                       **opts)
@@ -2700,17 +2745,29 @@ def phase_flash_kernels(results):
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
         extra = {}
-        if not opts:
-            # one PyTorch call of the same function, timed as a yardstick
+        if "softcap" not in opts:
+            # one PyTorch call of the same function (causal GQA, a binding
+            # window as a boolean mask), timed as a yardstick; it has no
+            # out= form, so only the fresh-output pairing
+            window = opts.get("window")
+            if window and window < s:
+                i = torch.arange(s, device=dev)
+                band = (i[None, :] <= i[:, None]) & (
+                    i[None, :] > i[:, None] - window)
+                sdpa_kw = dict(attn_mask=band, enable_gqa=True)
+                sdpa_name = "attn_mask=band"
+            else:
+                sdpa_kw = dict(is_causal=True, enable_gqa=True)
+                sdpa_name = "is_causal=True"
             sdpa_err = max_abs(tnf.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), want)
+                q, k, v, **sdpa_kw), want)
             row["library_ms"], pairing = library_times(
                 "flash_attention",
-                lambda x: tnf.scaled_dot_product_attention(
-                    *x, is_causal=True, enable_gqa=True),
+                lambda x: tnf.scaled_dot_product_attention(*x, **sdpa_kw),
                 "torch.nn.functional.scaled_dot_product_attention("
-                "is_causal=True, enable_gqa=True), f32, TF32 off",
-                sets * 2, lambda x: fk.flash_attention(*x, causal=True), ms,
+                f"{sdpa_name}, enable_gqa=True), f32, TF32 off",
+                sets * 2, lambda x: fk.flash_attention(*x, causal=True,
+                                                       **opts), ms,
                 same_out=False)
             extra.update(pairing, library_max_abs_err=sdpa_err)
         emit("kernel", **row, variant=label, shape=shape, options=opts,
@@ -2925,11 +2982,11 @@ def lm_warmup(label, cfg):
 
 def lm_run(label, plan, backend, kernel):
     """One full-width ``make_ps_engine`` run (``run_lm``, R=LM_R) with the
-    path's checks: ``kernel`` launched once per layer per forward (two
-    oracle calls a worker a local step, one eval a round), B1, B2 and B5
-    launched on the fused backend, the peak memory within budget. Emits
-    the ``label`` line; returns (eval losses, ms per local step, engine,
-    launches)."""
+    path's checks: ``kernel`` launched once per layer of its kind per
+    forward (two oracle calls a worker a local step, one eval a round),
+    B1, B2 and B5 launched on the fused backend, the peak memory within
+    budget. Emits the ``label`` line; returns (eval losses, ms per local
+    step, engine, launches)."""
     import torch
 
     cfg, m = plan.cfg, plan.workers_override
@@ -2939,9 +2996,11 @@ def lm_run(label, plan, backend, kernel):
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     forwards = LM_R * LM_K * 2 * m + LM_R     # 2 oracle calls, 1 eval
-    check(counts[kernel] == cfg.num_layers * forwards,
+    layers = sum(kind["kind"] == KERNEL_KIND[kernel]
+                 for kind in cfg.layer_kinds())
+    check(counts[kernel] == layers * forwards,
           f"{label} {backend}: {kernel} launched {counts[kernel]} "
-          f"times, expected {cfg.num_layers} x {forwards} forwards")
+          f"times, expected {layers} x {forwards} forwards")
     if backend == "fused":
         for name in ("adaseg_explore", "adaseg_anchor", "merge_stacked"):
             check(counts[name] > 0,
@@ -2953,7 +3012,8 @@ def lm_run(label, plan, backend, kernel):
          params_per_worker=sum(v[0].numel() for v in eng.state.z_tilde),
          eval_losses=losses, ms_per_local_step=ms, setup_seconds=setup_s,
          tokens_per_s=2 * m * LM_BATCH * LM_SEQ / (ms * 1e-3),
-         peak_memory_bytes=peak, forwards=forwards, launches=counts)
+         peak_memory_bytes=peak, forwards=forwards, kernel_layers=layers,
+         launches=counts)
     return losses, ms, eng, counts
 
 
@@ -3026,18 +3086,20 @@ def lm_compare(label, runs):
           f"{label}: fused vs reference eval losses differ by {rel}")
 
 
-def train_lm(results, label, cfg, kernel):
+def train_lm(results, label, cfg, kernel, m=LM_M, rerun=None):
     """``cfg`` at full width through the port's make_ps_engine, fused and
-    reference (M=4, 1 x 1024 tokens per worker, K=4, R=2, identity codec):
-    finite eval losses that agree within TOL_LM_TRACE, ``kernel`` launched
-    once per layer per forward, the peak memory within budget, and the
-    fused run's ms per local step split into its parts."""
+    reference (``m`` workers, 1 x 1024 tokens per worker, K=4, R=2,
+    identity codec): finite eval losses that agree within TOL_LM_TRACE,
+    ``kernel`` launched once per layer of its kind per forward, the peak
+    memory within budget, and the fused run's ms per local step split into
+    its parts; with ``rerun``, a second oracle call of the fused run's last
+    gradient, emitted under that label (``oracle_rerun``)."""
     import gc
 
     import torch
 
     lm_warmup(label, cfg)
-    plan = lm_plan(cfg, LM_M, LM_K, LM_SEQ, LM_BATCH)
+    plan = lm_plan(cfg, m, LM_K, LM_SEQ, LM_BATCH)
     runs = {}
     for backend in ("fused", "reference"):
         losses, ms, eng, counts = lm_run(label, plan, backend, kernel)
@@ -3046,9 +3108,11 @@ def train_lm(results, label, cfg, kernel):
             count_path(results, kernel, label, counts)
             parts = lm_state_gradient(plan, eng)
             lm_breakdown(label, plan, eng, ms, *parts)
-            prob, st, _, _, g, eval_fn = parts
+            prob, st, _, xi, g, eval_fn = parts
+            if rerun:
+                oracle_rerun(rerun, prob, st, xi, g)
             step_diff(label, plan, prob, st, g, eval_fn)
-            del parts, prob, st, g, eval_fn
+            del parts, prob, st, xi, g, eval_fn
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -3241,18 +3305,18 @@ def moe_dropped(cfg, params, tokens):
     return [int(c) / routed for c in counts]
 
 
-def moe_rerun(prob, st, xi, g):
+def oracle_rerun(label, prob, st, xi, g):
     """A second oracle call at the same z and ξ: every gradient leaf must
-    equal the first call's to the bit (the dispatch and combine sum in a
-    fixed order, without atomics)."""
+    equal the first call's to the bit (the MoE's dispatch and combine, the
+    RG-LRU's scan and conv sum in a fixed order, without atomics)."""
     t0 = time.perf_counter()
     again = prob.oracle(st.z_tilde, xi)
     differ = [int((a != b).sum()) for a, b in zip(g, again)]
-    emit("moe_rerun", leaves=len(differ), workers=st.z_tilde[0].shape[0],
+    emit(label, leaves=len(differ), workers=st.z_tilde[0].shape[0],
          entries=sum(v.numel() for v in g), entries_differ=sum(differ),
          seconds=time.perf_counter() - t0)
     check(not any(differ),
-          f"moe_rerun: gradients differ in {sum(differ)} entries")
+          f"{label}: gradients differ in {sum(differ)} entries")
 
 
 def phase_moe(results):
@@ -3292,7 +3356,7 @@ def phase_moe(results):
          **shares, **{f"{k}_forward": statistics.fmean(v)
                       for k, v in shares.items()})
     lm_breakdown("moe", plan, eng, ms, *parts)
-    moe_rerun(prob, st, xi, g)
+    oracle_rerun("moe_rerun", prob, st, xi, g)
     del parts, prob, st, keys, xi, g, eval_fn, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3326,6 +3390,26 @@ def phase_moe(results):
     check(min(seen["dropped_cuda"]) > 0 and min(seen["dropped_cpu"]) > 0,
           f"moe_small_drops: no choice dropped at capacity {MOE_SMALL_CF}")
     emit("moe_phase", seconds=time.perf_counter() - t_phase)
+
+
+def phase_rg(results):
+    """recurrentgemma-9b at full width and RG_LAYERS layers (rglru, rglru,
+    local attention with window 2048, then the rglru tail; B12 at head dim
+    256) through the port's make_ps_engine at M=1, fused and reference
+    (``rg``), with the breakdown and ``rg_step_diff`` of the fused run; a
+    rerun of the oracle, every gradient leaf bit-identical (``rg_rerun``);
+    then its smoke config on the card against the CPU (``rg_small``)."""
+    from repro_torch.configs import get_config, smoke_config
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(RG_ARCH), num_layers=RG_LAYERS,
+                              attn_backend="pallas")
+    train_lm(results, "rg", cfg, "flash_attention", m=RG_M,
+             rerun="rg_rerun")
+    small_lm("rg_small", dataclasses.replace(smoke_config(RG_ARCH),
+                                             attn_backend="pallas"),
+             "flash_attention", RG_SMALL_SEQ)
+    emit("rg_phase", seconds=time.perf_counter() - t_phase)
 
 
 def event_ms(fn):
@@ -3784,8 +3868,14 @@ def main() -> int:
         phase_async(None, make_bilinear_game(jr.PRNGKey(0), n=N, sigma=0.1),
                     smi)
         return 0
+    if sys.argv[1:] == ["--flash"]:
+        phase_flash_kernels({})
+        return 0
     if sys.argv[1:] == ["--moe"]:
         phase_moe({"flash_attention": {"name": "flash_attention"}})
+        return 0
+    if sys.argv[1:] == ["--rg"]:
+        phase_rg({"flash_attention": {"name": "flash_attention"}})
         return 0
     if sys.argv[1:] == ["--sampled"]:
         from repro_torch import random as jr
@@ -3813,6 +3903,7 @@ def main() -> int:
     phase_lm(results)
     phase_mamba2(results)
     phase_moe(results)
+    phase_rg(results)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

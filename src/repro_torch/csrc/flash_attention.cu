@@ -19,8 +19,8 @@
 // arithmetic is the reference's (_flash_kernel, kernel.py:32-95) at a
 // 64 x 32 blocking. Rows past S are not written and keys past T are
 // masked, so any S and T work without padding. exp and tanh are the
-// accurate expf and tanhf. D = 64 and D = 128 are compiled; any other head
-// dimension is refused with cudaErrorInvalidValue.
+// accurate expf and tanhf. D = 64, 128 and 256 are compiled; any other
+// head dimension is refused with cudaErrorInvalidValue.
 //
 // Bound on an H100 at the qwen2-0.5b path's shape (B = 1, H = 14, Kh = 2,
 // S = T = 1024, D = 64, causal): 4 * D flops per (query, visible key) pair
@@ -41,9 +41,12 @@
 // every operand x is split into x_hi = tf32(x) and x_lo = tf32(x - x_hi)
 // (round to nearest, ties away, as cvt.rna) and a product is a_lo.b_hi +
 // a_hi.b_lo + a_hi.b_hi; the dropped a_lo.b_lo and the rounding of x_lo
-// are ~2^-21 relative, close to f32. Q is split once per block into hi
-// and lo tiles in shared memory; K, V and P are split as their fragments
-// are read.
+// are ~2^-21 relative, close to f32. Q is held once per block in shared
+// memory, as it is; Q, K, V and P are split as their fragments are read.
+// (Q split once into hi and lo tiles in shared memory was 3-7% slower on
+// an H100 80GB HBM3 at 700 W: 65.1 against 62.6 us at the path's shape,
+// 123.0 against 114.8 us at D = 128, 73.4 against 69.3 us at granite's;
+// chip_smoke.py --flash on both layouts in one call.)
 // Warps: 16 query rows a warp, 4 row warps a block, times S key/value
 // streams (S = 4 at D = 64, 2 at D = 128): stream s takes the block's
 // reachable tiles s, s + S, ..., so the few query tiles that see the most
@@ -71,6 +74,15 @@
 // all heads: under a causal mask the last query tiles carry the most key
 // tiles. No atomics and a fixed order of every sum, so reruns are
 // bit-identical.
+//
+// D = 256 (recurrentgemma's 16 query heads over one KV head of 256): the
+// D = 128 layout at 256 would hold two streams' double-buffered K/V tiles
+// beside Q, 342,016 bytes of shared memory against the 232,448 a block may
+// have, and its accumulator is 128 registers a thread. So it runs one
+// key/value stream (4 row warps, 128 threads): 17,408 + 2 x 17,024
+// floats, 205,824 bytes, one block an SM. Bound at (B = 1, H = 16, Kh = 1,
+// S = T = 1024, D = 256, causal): 8.60 GFLOP, 52.1 us at three TF32
+// terms (128 us of f32 FMA); bytes 35.7 MB, 10.6 us.
 //
 // The entry point returns cudaGetLastError() after its launch.
 
@@ -105,22 +117,23 @@ struct Params {
 };
 
 // Key/value streams of a block: 4 at D = 64 (512 threads, the register
-// file's 128 a thread), 2 at D = 128 (256 threads).
+// file's 128 a thread), 2 at D = 128 (256 threads), 1 at D = 256 (128
+// threads).
 template <int D>
 struct Layout {
-  static constexpr int kStreams = D == 64 ? 4 : 2;
+  static constexpr int kStreams = D == 64 ? 4 : (D == 128 ? 2 : 1);
   static constexpr int kThreads = 32 * kRowWarps * kStreams;
   static constexpr int kLdQK = D + 16;   // Q and K rows: 16-byte reads, conflict-free
   static constexpr int kLdV = D + 4;     // V rows: 4-byte reads of rows 2t, 2t + 1
-  static constexpr int kQhi = 0;
-  static constexpr int kQlo = kQhi + kBq * kLdQK;
-  static constexpr int kKV = kQlo + kBq * kLdQK;  // stream s, buffer b at kKV + (2s + b) kTile
+  static constexpr int kQ = 0;           // Q, as it is
+  static constexpr int kKV = kBq * kLdQK;  // stream s, buffer b at kKV + (2s + b) kTile
   static constexpr int kV = kBk * kLdQK;          // V's offset in a tile
   static constexpr int kTile = kV + kBk * kLdV;
   static constexpr int kMerge = 4 + 4 * (D / 8);  // floats a lane hands over
   static constexpr size_t kBytes = sizeof(float) * (kKV + 2 * kStreams * kTile);
   static_assert((kStreams - 1) * kRowWarps * 32 * kMerge <= 2 * kStreams * kTile,
                 "the merge reuses the K/V buffers");
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -251,7 +264,7 @@ flash_fwd_kernel(Params p) {
   if (ntiles > 0) load_tile(0, 0);
   cp_async_commit();
 
-  // Q, split once for the block; rows past S are zeros
+  // Q, as it is; rows past S are zeros
   for (int i = threadIdx.x; i < kBq * D / 4; i += L::kThreads) {
     const int r = i / (D / 4);
     const int c = (i % (D / 4)) * 4;
@@ -259,13 +272,7 @@ flash_fwd_kernel(Params p) {
     if (q_start + r < p.s) {
       x = *reinterpret_cast<const float4*>(q + static_cast<int64_t>(q_start + r) * D + c);
     }
-    uint4 hi, lo;
-    split(x.x, hi.x, lo.x);
-    split(x.y, hi.y, lo.y);
-    split(x.z, hi.z, lo.z);
-    split(x.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(smem + L::kQhi + r * L::kLdQK + c) = hi;
-    *reinterpret_cast<uint4*>(smem + L::kQlo + r * L::kLdQK + c) = lo;
+    *reinterpret_cast<float4*>(smem + L::kQ + r * L::kLdQK + c) = x;
   }
   __syncthreads();
 
@@ -318,14 +325,17 @@ flash_fwd_kernel(Params p) {
 #pragma unroll 2
       for (int kk = 0; kk < D / 16; ++kk) {
         const int col = 16 * kk + 4 * t;
-        const uint4 qh0 = *reinterpret_cast<const uint4*>(smem + L::kQhi + row * L::kLdQK + col);
-        const uint4 qh8 = *reinterpret_cast<const uint4*>(smem + L::kQhi + (row + 8) * L::kLdQK + col);
-        const uint4 ql0 = *reinterpret_cast<const uint4*>(smem + L::kQlo + row * L::kLdQK + col);
-        const uint4 ql8 = *reinterpret_cast<const uint4*>(smem + L::kQlo + (row + 8) * L::kLdQK + col);
-        const uint32_t a0hi[4] = {qh0.x, qh8.x, qh0.y, qh8.y};
-        const uint32_t a0lo[4] = {ql0.x, ql8.x, ql0.y, ql8.y};
-        const uint32_t a1hi[4] = {qh0.z, qh8.z, qh0.w, qh8.w};
-        const uint32_t a1lo[4] = {ql0.z, ql8.z, ql0.w, ql8.w};
+        uint32_t a0hi[4], a0lo[4], a1hi[4], a1lo[4];
+        const float4 q0 = *reinterpret_cast<const float4*>(smem + L::kQ + row * L::kLdQK + col);
+        const float4 q8 = *reinterpret_cast<const float4*>(smem + L::kQ + (row + 8) * L::kLdQK + col);
+        split(q0.x, a0hi[0], a0lo[0]);
+        split(q8.x, a0hi[1], a0lo[1]);
+        split(q0.y, a0hi[2], a0lo[2]);
+        split(q8.y, a0hi[3], a0lo[3]);
+        split(q0.z, a1hi[0], a1lo[0]);
+        split(q8.z, a1hi[1], a1lo[1]);
+        split(q0.w, a1hi[2], a1lo[2]);
+        split(q8.w, a1hi[3], a1lo[3]);
         uint32_t b0hi[kNt][2], b0lo[kNt][2], b1hi[kNt][2], b1lo[kNt][2];
 #pragma unroll
         for (int n = 0; n < kNt; ++n) {
@@ -500,6 +510,8 @@ int flash_attention_launch(const float* q, const float* k, const float* v,
     err = launch<64>(p, st);
   } else if (d == 128) {
     err = launch<128>(p, st);
+  } else if (d == 256) {
+    err = launch<256>(p, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

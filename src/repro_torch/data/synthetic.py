@@ -51,7 +51,7 @@ def make_batch(rng: torch.Tensor, cfg: ArchConfig, batch: int,
     if cfg.encoder_seq:
         raise NotImplementedError(
             "frontend stubs (encoder-decoder and VLM configs) are ported "
-            "with the other model kinds (ROADMAP A18, A19)")
+            "with serving (ROADMAP A19)")
     toks = sample_tokens(rng, batch, seq, cfg.vocab_size)
     return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
 
@@ -62,8 +62,7 @@ def batch_struct(cfg: ArchConfig, lead: tuple[int, ...], batch: int,
     oracle calls × workers for a round), as ``{name: (shape, dtype)}``."""
     if cfg.encoder_seq:
         raise NotImplementedError(
-            "frontend stubs are ported with the other model kinds "
-            "(ROADMAP A18, A19)")
+            "frontend stubs are ported with serving (ROADMAP A19)")
     tok = ((*lead, batch, seq), torch.int32)
     return {"tokens": tok, "labels": tok}
 

@@ -10,8 +10,8 @@ past T and writes no row past S, so it needs no padding; its tiles are
 64 queries × 32 keys where the TPU kernel's are 512 × 512, which changes
 which tiles are skipped but not the result. Its products run on TF32
 tensor cores, each operand split into two TF32 terms (three products),
-within 2e-5 of the plain version on unit-normal inputs. Head dims 64
-and 128 are compiled.
+within 2e-5 of the plain version on unit-normal inputs. Head dims 64,
+128 and 256 are compiled.
 
 A CPU tensor goes to the plain version (:func:`.ref.attention_ref`); a
 CUDA tensor launches the kernel or raises.
@@ -34,7 +34,7 @@ from .._build import F, I, P
 from .ref import attention_ref
 
 #: head dims the kernel is compiled for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 FLASH = _build.Kernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",

@@ -73,7 +73,7 @@ def softcap(x, cap):
     return cap * torch.tanh(x / cap)
 
 
-# --- causal depthwise conv (mamba2) -------------------------------------------
+# --- causal depthwise conv (mamba2, RG-LRU) ----------------------------------
 
 def init_conv1d(key, channels, width):
     return {"w": _normal(key, (width, channels), channels ** -0.5),

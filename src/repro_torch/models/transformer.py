@@ -1,26 +1,28 @@
-"""Model assembly for decoder-only stacks of attention and Mamba2 blocks
-(port of ``repro.models.transformer``, training path).
+"""Model assembly for decoder-only stacks of attention, Mamba2 and RG-LRU
+blocks (port of ``repro.models.transformer``, training path).
 
-Pre-norm residual blocks: a mixer, attention (global or sliding-window) or
-Mamba2's SSD (``kind == "ssm"``), then a gated MLP where the config has one
-(``d_ff > 0``; mamba2 has none) or, in MoE configs, a Mixture-of-Experts
-layer (:mod:`repro_torch.models.moe`), whose router aux losses
-:func:`forward` sums in the JAX package's order. Layers are ``num_groups`` repetitions of a
-``pattern_period``-long stage, and each period position's parameters are
-stacked with a leading group axis (``_init_stage``), the JAX package's
-layout, so parameters and checkpoints cross between the packages leaf for
-leaf. A plain loop over the group axis replaces the JAX package's
-rematerialized ``lax.scan``; the values are the same, only the memory
-schedule differs.
+Pre-norm residual blocks: a mixer, attention (global or sliding-window),
+Mamba2's SSD (``kind == "ssm"``) or Griffin's RG-LRU recurrent block
+(``kind == "rglru"``, :mod:`repro_torch.models.rglru`; recurrentgemma's
+period is rglru, rglru, local attention), then a gated MLP where the
+config has one (``d_ff > 0``; mamba2 has none) or, in MoE configs, a
+Mixture-of-Experts layer (:mod:`repro_torch.models.moe`), whose router
+aux losses :func:`forward` sums in the JAX package's order. Layers are
+``num_groups`` repetitions of a ``pattern_period``-long stage, and each
+period position's parameters are stacked with a leading group axis
+(``_init_stage``), the JAX package's layout, so parameters and
+checkpoints cross between the packages leaf for leaf. A plain loop over
+the group axis replaces the JAX package's rematerialized ``lax.scan``;
+the values are the same, only the memory schedule differs.
 
 Parameters live in two forms: a nested dict for one model (what
 :func:`forward` and :func:`loss_fn` take) and, on the engine side, a tuple
 of worker-stacked leaves in ``jax.tree.leaves`` order (dict keys sorted,
 lists in order): :func:`param_leaves` and :func:`param_tree` convert.
 
-RG-LRU layers are ported with recurrentgemma (ROADMAP A18c);
-encoder-decoder and cross-attention stacks, the KV and SSM caches and
-decode with serving (A19). Their configs raise ``NotImplementedError``.
+Encoder-decoder and cross-attention stacks, the KV, SSM and RG-LRU
+caches and decode come with serving (ROADMAP A19); their configs raise
+``NotImplementedError``.
 
 Examples
 --------
@@ -56,6 +58,7 @@ from .layers import (
 )
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
+from .rglru import apply_rglru, init_rglru
 from .ssm import apply_ssm, init_ssm
 
 
@@ -69,10 +72,6 @@ def check_supported(cfg: ArchConfig) -> None:
             "(ROADMAP A19)")
     if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
         raise NotImplementedError(f"{cfg.name}: the port computes in float32")
-    if any(kind["kind"] == "rglru" for kind in cfg.layer_kinds()):
-        raise NotImplementedError(
-            f"{cfg.name}: rglru layers are ported with recurrentgemma "
-            "(ROADMAP A18c)")
 
 
 def init_norm(key_like, cfg: ArchConfig):
@@ -87,9 +86,12 @@ def apply_norm(cfg: ArchConfig, p, x):
 # Init
 # ---------------------------------------------------------------------------
 
+_INIT_MIXER = {"attn": init_attention, "ssm": init_ssm, "rglru": init_rglru}
+
+
 def _init_block(key, cfg: ArchConfig, kind: dict):
     keys = split(key, 8)
-    mixer = init_ssm if kind["kind"] == "ssm" else init_attention
+    mixer = _INIT_MIXER[kind["kind"]]
     p = {"pre_norm": init_norm(key, cfg), "mixer": mixer(keys[0], cfg)}
     if kind["moe"]:
         p["mlp_norm"] = init_norm(key, cfg)
@@ -162,11 +164,13 @@ def param_tree(leaves, cfg: ArchConfig):
 def _block_forward(lp, cfg: ArchConfig, kind, x, positions, dropped):
     """One block: ``(x, aux)``, aux the MoE router loss or None."""
     h = apply_norm(cfg, lp["pre_norm"], x)
-    if kind["kind"] == "ssm":
-        out = apply_ssm(lp["mixer"], cfg, h)
-    else:
+    if kind["kind"] == "attn":
         out = apply_attention(lp["mixer"], cfg, h, positions,
                               window=kind["window"])
+    elif kind["kind"] == "ssm":
+        out = apply_ssm(lp["mixer"], cfg, h)
+    else:
+        out = apply_rglru(lp["mixer"], cfg, h)
     if cfg.post_norm:
         out = apply_norm(cfg, lp["mixer_post"], out)
     x = x + out

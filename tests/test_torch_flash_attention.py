@@ -1,9 +1,10 @@
 """The port's flash attention (B12) on the CPU, held against the JAX
 package: its plain version against the Pallas kernel run in interpret
 mode (as ``tests/test_kernels.py`` runs it) over causal masking, sliding
-windows, logit soft-capping, GQA and a ragged sequence, and the model's
-self-attention (kernel forward, plain-version gradient) against the JAX
-package's ``custom_vjp`` in value and gradient, and the reference
+windows, logit soft-capping, GQA, a ragged sequence and head dim 256 over
+one KV head (recurrentgemma's), and the model's self-attention (kernel
+forward, plain-version gradient) against the JAX package's
+``custom_vjp`` in value and gradient, and the reference
 backend's long-sequence path (``_chunked_attention``) against the JAX
 package's at a small block.
 
@@ -53,6 +54,9 @@ CASES = {
     "mha": (2, 3, 3, 32, 8, {}),
     "ragged": (1, 6, 2, 50, 8, {}),
     "ragged_window": (1, 4, 2, 37, 8, dict(window=9)),
+    # recurrentgemma's attention: query heads over one KV head of 256,
+    # under a window shorter than the sequence
+    "d256_mqa_window": (1, 4, 1, 64, 256, dict(window=24)),
 }
 
 
@@ -88,7 +92,7 @@ def test_plain_version_matches_the_pallas_kernel(case):
 
 
 @pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_gqa",
-                                  "ragged"])
+                                  "ragged", "d256_mqa_window"])
 def test_entry_point_runs_the_plain_version_on_the_cpu(case):
     q, k, v, kw = _inputs(case)
     q, k, v = torch.tensor(q), torch.tensor(k), torch.tensor(v)
@@ -103,12 +107,12 @@ def test_wrapper_refuses_other_devices():
     q = torch.empty(1, 2, 8, 64, device="meta")
     with pytest.raises(ValueError):
         fk.flash_attention(q, q, q)
-    assert fk.HEAD_DIMS == (64, 128)
+    assert fk.HEAD_DIMS == (64, 128, 256)
     assert fk.FLASH in _build.KERNELS
 
 
 @pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_gqa",
-                                  "ragged"])
+                                  "ragged", "d256_mqa_window"])
 def test_self_attention_value_and_gradient_match_jax(case):
     """The model's layout (B, S, H, D): forward through the kernel route,
     backward through the plain version, against the JAX package's

@@ -4,12 +4,13 @@ transformer's initial parameters, loss and gradients (reference attention
 and the flash route), ``make_ps_engine`` end to end, the ``ModelWorker``
 fingerprint, and checkpoints across architectures and packages.
 
-Seven configs: ``tiny_lm_config()``, a narrow qwen2-shaped one (QKV bias,
+Eight configs: ``tiny_lm_config()``, a narrow qwen2-shaped one (QKV bias,
 tied embeddings, GQA 14:2, head_dim 8, rope θ 1e6, 2 layers, vocab 256),
 narrow gemma2- and qwen3-shaped ones for their branches, a narrow
-mamba2-shaped one (SSD blocks, no MLP), and narrow granite- and
+mamba2-shaped one (SSD blocks, no MLP), narrow granite- and
 mixtral-shaped ones (MoE layers: 32 experts top-8, and 8 experts top-2
-under sliding windows).
+under sliding windows), and a narrow recurrentgemma-shaped one (RG-LRU
+blocks and local attention: two stacked groups and a two-layer tail).
 Nothing runs at full width. Tolerances are stated at each assertion; the
 two packages differ in f32 sum order and in ``erfinv``/``log`` ulps
 (ROADMAP C3), never in the tokens drawn.
@@ -99,11 +100,19 @@ MIXTRAL_NARROW = jconfigs.ArchConfig(
     num_experts=8, experts_per_token=2, layer_pattern="swa",
     sliding_window=6, rope_theta=1_000_000.0, max_seq_len=64,
 )
+# recurrentgemma's: the (rglru, rglru, local attention) period twice and
+# the two-layer rglru tail (8 layers), d_rnn rounded up from 64 to 128,
+# 4 query heads over one KV head of 16 under a window shorter than SEQ,
+# a scaled embedding, GeGLU, tied embeddings.
+RG_NARROW = dataclasses.replace(
+    jconfigs.get_config("recurrentgemma-9b"), name="rg-narrow",
+    num_layers=8, d_model=64, num_heads=4, num_kv_heads=1, head_dim=16,
+    d_ff=128, vocab_size=256, sliding_window=6, max_seq_len=64)
 JAX_CONFIGS = {"tiny": jax_tiny(), "qwen2_narrow": QWEN2_NARROW,
                "gemma2_narrow": GEMMA2_NARROW, "qwen3_narrow": QWEN3_NARROW,
                "mamba2_narrow": MAMBA2_NARROW,
                "granite_narrow": GRANITE_NARROW,
-               "mixtral_narrow": MIXTRAL_NARROW}
+               "mixtral_narrow": MIXTRAL_NARROW, "rg_narrow": RG_NARROW}
 
 
 def _jax_cfg(name, backend="reference"):
@@ -154,7 +163,6 @@ def test_validate_refuses_what_the_jax_package_refuses():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("recurrentgemma-9b", "A18"),
     ("whisper-small", "A19"), ("llama-3.2-vision-11b", "A19")])
 def test_other_layer_kinds_wait_for_their_slice(arch, item):
     cfg = tconfigs.smoke_config(arch)
@@ -192,6 +200,25 @@ def test_moe_smoke_configs_build_a_problem(arch):
     names = [".".join(n) for n in _leaf_paths(param_tree(z, cfg))]
     router = grads[names.index("stages.0.mlp.router")]
     assert router.abs().sum() > 0
+
+
+def test_rg_smoke_config_builds_a_problem():
+    """The RG-LRU layer is ported: recurrentgemma's smoke config (one
+    rglru, rglru, local-attention period, head dim 64, window 8) with the
+    flash route initializes, draws a batch and takes a finite gradient
+    whose RG-LRU leaves are nonzero, at a sequence the window binds."""
+    cfg = dataclasses.replace(tconfigs.smoke_config("recurrentgemma-9b"),
+                              attn_backend="pallas")
+    assert cfg.sliding_window < 16
+    prob = make_lm_problem(cfg, batch=1, seq=16)
+    keys = torch.stack([_key(1), _key(2)])
+    z = prob.init(keys)
+    grads = prob.oracle(z, prob.sample(keys))
+    assert [tuple(g.shape) for g in grads] == [tuple(v.shape) for v in z]
+    assert all(torch.isfinite(g).all() for g in grads)
+    names = [".".join(n) for n in _leaf_paths(param_tree(z, cfg))]
+    for leaf in ("lam", "w_a", "w_x", "conv.w", "in_proj"):
+        assert grads[names.index(f"stages.0.mixer.{leaf}")].abs().sum() > 0
 
 
 def _leaf_paths(tree, prefix=()):
@@ -345,6 +372,35 @@ def test_mamba2_params_round_trip_through_numpy():
         np.testing.assert_array_equal(a, b)
 
 
+def test_rglru_params_round_trip_through_numpy():
+    """recurrentgemma's RG-LRU leaves (b_a, b_x, conv/{b,w}, in_proj, lam,
+    out_proj, w_a, w_x), with the stacked group axis and in the tail list,
+    in ``jax.tree.leaves`` order, both ways."""
+    jcfg = _jax_cfg("rg_narrow")
+    cfg = _port_cfg(jcfg)
+    jparams = jax.tree.map(np.asarray,
+                           jax_init_model(jax.random.PRNGKey(2), jcfg)[0])
+    leaves = interop.params_from_numpy(jparams, cfg, device="cpu")
+    paths = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    names = [".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path) for path, _ in paths]
+    mixer = ["b_a", "b_x", "conv.b", "conv.w", "in_proj", "lam",
+             "out_proj", "w_a", "w_x"]
+    for block in ("stages.0", "stages.1", "tail.0", "tail.1"):
+        assert [n for n in names if n.startswith(f"{block}.mixer.")] == [
+            f"{block}.mixer.{m}" for m in mixer]
+    assert leaves[names.index("stages.0.mixer.w_a")].shape == (2, 128, 128)
+    assert leaves[names.index("tail.1.mixer.in_proj")].shape == (64, 256)
+    assert names == [".".join(p) for p in _leaf_paths(param_tree(leaves,
+                                                                 cfg))]
+    for a, b in zip(leaves, jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    back = interop.params_to_numpy(leaves, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(jparams)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_moe_params_round_trip_through_numpy():
     """granite's MoE leaves (router, w_gate, w_in, w_out, with the stacked
     group axis), in ``jax.tree.leaves`` order, both ways."""
@@ -421,6 +477,19 @@ def jax_moe_runs():
     return _jax_runs("granite_narrow")
 
 
+@pytest.fixture(scope="module")
+def jax_rg_run():
+    """The JAX engine's fused run on the recurrentgemma-shaped config, one
+    compilation of its round: the eval losses, z̄, and the engine itself,
+    which the checkpoint test rewinds (the compiled round is kept per
+    engine and chunk length, and a second engine would compile it again).
+    It runs round by round, as the rewound engine will."""
+    eng = _jax_engine("fused", name="rg_narrow")
+    eng.run(until_round=1)
+    z = eng.run()
+    return [r.residual for r in eng.trace.rounds], _jax_leaves(z), eng
+
+
 @pytest.mark.parametrize("backend", ["reference", "fused"])
 def test_make_ps_engine_matches_jax(jax_runs, backend):
     """M=2, K=2, R=2 on the qwen2-shaped config with the flash route: the
@@ -470,6 +539,25 @@ def test_make_ps_engine_matches_jax_on_moe(jax_moe_runs, backend):
     for g, w in zip(z, want_z):
         np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
     assert eng.trace.meta["problem"] == f"lm[granite-narrow]x{BATCH}x{SEQ}"
+
+
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_make_ps_engine_matches_jax_on_rg(jax_rg_run, backend):
+    """M=2, K=2, R=2 on the recurrentgemma-shaped config (RG-LRU blocks,
+    local attention through the flash route), each backend against the
+    JAX engine's fused run: the eval-loss trace at rtol 1e-5, z̄ at rtol
+    1e-4 / atol 1e-5."""
+    want_trace, want_z, _ = jax_rg_run
+    eng = _port_engine(backend,
+                       cfg=_port_cfg(_jax_cfg("rg_narrow", "pallas")))
+    z = eng.run()
+    trace = [r.residual for r in eng.trace.rounds]
+    assert len(trace) == R and all(np.isfinite(trace))
+    np.testing.assert_allclose(trace, want_trace, rtol=TRACE_RTOL)
+    assert len(z) == len(want_z)
+    for g, w in zip(z, want_z):
+        np.testing.assert_allclose(g.numpy(), w, **ZBAR_TOL)
+    assert eng.trace.meta["problem"] == f"lm[rg-narrow]x{BATCH}x{SEQ}"
 
 
 def test_make_ps_engine_refuses_later_slices():
@@ -535,7 +623,8 @@ def test_make_ps_engine_async_matches_jax(jax_async_run, backend):
 
 
 @pytest.mark.parametrize("arch", ["tiny-lm", "qwen2-0.5b", "mamba2-370m",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m",
+                                  "recurrentgemma-9b"])
 def test_model_worker_fingerprint_equals_jax(arch):
     jw = JaxModelWorker(JaxAdaSEG(**ADASEG), arch=arch)
     tw = ModelWorker(AdaSEGConfig(**ADASEG), arch=arch)
@@ -608,6 +697,33 @@ def test_moe_checkpoint_crosses_to_the_jax_engine(jax_moe_runs, tmp_path):
         np.testing.assert_array_equal(a, b.numpy())
     z = jeng.run()
     want_trace, want_z = jax_moe_runs["reference"]
+    np.testing.assert_allclose(jeng.trace.rounds[-1].residual, want_trace[-1],
+                               rtol=TRACE_RTOL)
+    for g, w in zip(_jax_leaves(z), want_z):
+        np.testing.assert_allclose(g, w, **ZBAR_TOL)
+
+
+def test_rg_checkpoint_crosses_to_the_jax_engine(jax_rg_run, tmp_path):
+    """A port checkpoint of the recurrentgemma-shaped engine after round 1
+    restores into the JAX engine, rewound from the end of its run (state
+    bit for bit), which runs round 2 to its uninterrupted result: eval
+    loss at rtol 1e-5, z̄ at rtol 1e-4 / atol 1e-5."""
+    path = str(tmp_path / "rg.ckpt")
+    eng = _port_engine("fused", cfg=_port_cfg(_jax_cfg("rg_narrow",
+                                                       "pallas")))
+    eng.run(until_round=1)
+    eng.save(path)
+    want_trace, want_z, jeng = jax_rg_run
+    assert jeng.round == R
+    jeng.restore(path)
+    assert jeng.round == 1 and len(jeng.trace.rounds) == 1
+    state = _jax_leaves(jeng.state)
+    mine = _fleet_state(eng.state)
+    assert len(state) == len(mine)
+    for a, b in zip(state, mine):
+        np.testing.assert_array_equal(a, b.numpy())
+    z = jeng.run()
+    assert jeng.round == R
     np.testing.assert_allclose(jeng.trace.rounds[-1].residual, want_trace[-1],
                                rtol=TRACE_RTOL)
     for g, w in zip(_jax_leaves(z), want_z):

@@ -268,6 +268,70 @@ def test_shard_dispatch_is_inert():
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
 
 
+def _granite_first_moe_input(n):
+    """The JAX package's granite at its published width, cut to its first
+    block, at init: the input that block's MoE layer sees on one worker's
+    1 × n Markov-Zipf tokens (embedding, then pre-norm causal attention
+    with its residual, then the MLP norm), and that layer's parameters
+    (``init_moe``'s, through ``init_model``), computed under ``jax.jit``."""
+    from repro.data.synthetic import make_batch
+    from repro.models.attention import apply_attention
+    from repro.models.layers import apply_embedding
+    from repro.models.transformer import apply_norm, init_model
+
+    jcfg = dataclasses.replace(jconfigs.get_config("granite-moe-1b-a400m"),
+                               num_layers=1)
+
+    def build(key, token_key):
+        params = init_model(key, jcfg)[0]
+        block = jax.tree.map(lambda v: v[0], params["stages"][0])
+        tokens = make_batch(token_key, jcfg, 1, n)["tokens"]
+        x = apply_embedding(params["embed"], tokens)
+        x = x + apply_attention(block["mixer"], jcfg,
+                                apply_norm(jcfg, block["pre_norm"], x),
+                                jnp.arange(n)[None, :], window=None)
+        return block["mlp"], apply_norm(jcfg, block["mlp_norm"], x)
+
+    jp, h = jax.jit(build)(jax.random.PRNGKey(7), jax.random.PRNGKey(987))
+    return jcfg, jp, np.asarray(h)
+
+
+def test_granite_full_width_drops_what_jax_drops():
+    """C23: one MoE layer at granite's published width (d_model 1024, 32
+    experts top-8 of d_ff 512, capacity factor 1.25: 320 slots an expert)
+    on 1 × 1024 tokens, forward only, on the input the model's first MoE
+    layer sees at init, the same numpy array in both packages. The port
+    drops the choices the JAX package drops: the same count (over a
+    quarter of the 8192 here, 34.9%, as the card's 38.0% at layer 0), the
+    same load routed to and kept by each expert; the output at rtol 1e-5
+    / atol 1e-6."""
+    n = 1024
+    jcfg, jp, x = _granite_first_moe_input(n)
+    jout, _ = jax.jit(lambda p, v: jmoe.apply_moe(p, jcfg, v))(
+        jp, jnp.asarray(x))
+    cfg = _port(jcfg)
+    tp = {k: torch.tensor(np.asarray(v)) for k, v in jp.items()}
+    seen = []
+    with torch.no_grad():
+        out, _ = moe.apply_moe(tp, cfg, torch.tensor(x), dropped=seen)
+
+    assert moe._capacity(cfg, n) == jmoe._capacity(jcfg, n) == 320
+    jtop, jkeep = _jax_routing(jp, jcfg, x)
+    ttop, tkeep = _port_routing(tp, cfg, x)
+    dropped = int((~jkeep).sum())
+    assert int(seen[0]) == int((~tkeep).sum()) == dropped
+    assert dropped > 0.25 * n * jcfg.experts_per_token
+    e = jcfg.num_experts
+    np.testing.assert_array_equal(np.bincount(ttop.ravel(), minlength=e),
+                                  np.bincount(jtop.ravel(), minlength=e))
+    kept = np.bincount(ttop[tkeep], minlength=e)
+    np.testing.assert_array_equal(kept, np.bincount(jtop[jkeep],
+                                                    minlength=e))
+    assert kept.max() == 320
+    assert _kept_sets(ttop, tkeep) == _kept_sets(jtop, jkeep)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **OUT_TOL)
+
+
 def test_dropped_counts_the_choices_past_capacity():
     jcfg = dataclasses.replace(MIXTRAL, capacity_factor=0.05)
     x, _ = _inputs(jcfg, 2, 64)

@@ -171,6 +171,7 @@ DOCTEST_MODULES = [
     "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.ssd_scan.kernel", "repro_torch.kernels.ssd_scan.ref",
     "repro_torch.models.ssm", "repro_torch.models.moe",
+    "repro_torch.models.rglru",
     "repro_torch.models.transformer", "repro_torch.models.problem",
     "repro_torch.models.worker", "repro_torch.launch.train",
     "repro_torch.core.types", "repro_torch.core.projections",
